@@ -12,11 +12,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
               integer arithmetic), with both times from CUDA events.
   4. prove    the chain AIR of scripts/bench_big.py at 2^20 rows x 8 columns
               (blowup 2, 8 queries), written to files and proved through the
-              port's file-based stark_prove on the card, which verifies its
-              proof: stage split, peak device memory, kernel launch counts.
-              The proof JSON's sha256 must equal HOST_PROOF_SHA256, the
-              digest of eigen_zkvm_tpu's host-engine proof of the same files.
-              JAX must never have been imported.
+              port's file-based stark_prove on the card, device-resident
+              (commits, constraint VM, Q split, openings, FRI folds), which
+              verifies its proof: stage split, peak device memory, kernel
+              launch counts.  The proof JSON's sha256 must equal
+              HOST_PROOF_SHA256, the digest of eigen_zkvm_tpu's host-engine
+              proof of the same files.  No module of JAX or of the JAX
+              package (eigen_zkvm_tpu) may have been loaded.
+
+Phase 3 holds each kernel at every shape the main path gives it: the NTT
+at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
+FRI fold's group iNTT; Poseidon at a Merkle level, a bare permutation and
+a fold tree's 96-wide leaves (the sponge calls that chain a capacity).
+
+Each kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and the IMADs its function needs at the least
+over the card's peak IMAD rate (constants below).  The IMADs are counted
+from the function, not from the kernel: its field products (butterflies
+and scales of a radix-2 transform, the S-boxes and linear layers of the
+Poseidon opt schedule), each priced at the fewest 32-bit multiply-adds the
+ISA allows for it.  No single PyTorch call computes a Goldilocks NTT or a
+Poseidon permutation, so `library_ms` is null.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.
@@ -39,6 +55,24 @@ NBITS, WIDTH, QUERIES = 20, 8, 8
 HOST_PROOF_SHA256 = \
     "7d6bf093c6afc7d4f4467d3fbc27701343f67b291fab11508b7519964610390b"
 ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+# Fewest IMADs (IMAD.WIDE.U32, a 32x32->64-bit multiply-add) for one
+# Goldilocks product: a 64x64-bit product is four limb products, a square
+# three (the cross product once, doubled by a shift), a product by a
+# constant below 2^32 two.  Reducing mod p = 2^64 - 2^32 + 1 takes shifts
+# and adds only.
+IMAD_MUL, IMAD_SQR, IMAD_SMALL = 4, 3, 2
+# Peak IMAD issue: 64 per clock on each of the 132 SMs (half the float32
+# FMA lanes), at the 1.98 GHz at which the data sheet's 67 TFLOP/s float32
+# holds.
+IMAD_PER_S = 132 * 64 * 1.98e9
+# One Poseidon-GL permutation in the opt schedule (hash/poseidon.py): 118
+# x^7 S-boxes (12 lanes in each of 8 full rounds, one in each of 22 partial
+# rounds; two squares and two products each), 7 MDS layers of 144 products
+# by entries below 2^6, the dense pre-partial matrix (144 products) and 22
+# sparse partial-round layers (12 + 11 products each).
+POSEIDON_IMADS = (118 * (2 * IMAD_SQR + 2 * IMAD_MUL) + 7 * 144 * IMAD_SMALL
+                  + (144 + 22 * 23) * IMAD_MUL)
 
 
 def _fail(msg: str) -> int:
@@ -60,6 +94,24 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _ntt_imads(log_n: int, cols: int, scaled: bool) -> int:
+    """IMADs of a radix-2 transform of 2^log_n rows x cols: n/2 log n
+    butterfly products a column, and one more a value when the output is
+    scaled (n^-1, the coset)."""
+    n = 1 << log_n
+    return cols * (n // 2 * log_n + (n if scaled else 0)) * IMAD_MUL
+
+
+def _bound(nbytes: float, imads: float) -> dict:
+    """The least time for the work: bytes over the memory rate, or IMADs
+    over the IMAD rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = imads / IMAD_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
 def _max_abs_err(got, want) -> float:
     import torch
 
@@ -69,8 +121,25 @@ def _max_abs_err(got, want) -> float:
     return float(diff.abs().max())
 
 
+def _hold(label: str, kernel, plain, reps: int, plain_reps: int,
+          nbytes: float, imads: float) -> dict:
+    """One shape of a kernel: its result against the plain version's on
+    the same inputs, both times, its bound."""
+    err = _max_abs_err(kernel(), plain())
+    ms = _time_ms(kernel, reps)
+    plain_ms = _time_ms(plain, plain_reps)
+    b = _bound(nbytes, imads)
+    print(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+          f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), "
+          f"max_abs_err {err}")
+    return dict(label=label, err=err, ms=ms, plain_ms=plain_ms, **b)
+
+
 def _check_kernels(dev, rng) -> list[dict]:
-    """Phase 3: kernel vs plain at the main path's shapes."""
+    """Phase 3: each kernel against its plain version at the main path's
+    shapes.  The first case of a kernel is the one its line reports; its
+    error is the largest over all its cases."""
     from eigen_zkvm_tpu_torch import kernels
     from eigen_zkvm_tpu_torch.ops import gl, ntt, poseidon
     import numpy as np
@@ -79,45 +148,62 @@ def _check_kernels(dev, rng) -> list[dict]:
         return gl.from_u64(rng.integers(0, 2**64, size=shape, dtype=np.uint64)
                            % np.uint64(gl.P_INT), dev)
 
-    results = []
-    # NTT: the LDE of one committed section, and one leaf-size transform
-    x = rand(1 << NBITS, WIDTH)
-    got = ntt.interpolate(x, NBITS, NBITS + 1)
-    err = _max_abs_err(got, ntt.interpolate_plain(x, NBITS, NBITS + 1))
+    n, ext = 1 << NBITS, NBITS + 1
+    # NTT: the LDE of a committed section, a leaf tile, the Q split's iNTT
+    # and NTT over the extended domain (q_dim 3, q_deg 1), the first FRI
+    # fold's group iNTT (2^5 rows, every group and coordinate as a column)
+    x = rand(n, WIDTH)
     leaf_x = rand(1 << ntt.KMAX, 1 << 16)
     root = ntt._root(ntt.KMAX)
-    err_leaf = _max_abs_err(ntt._leaf(leaf_x, ntt.KMAX, root),
-                            ntt.leaf_plain(leaf_x, ntt.KMAX, root))
-    ms = _time_ms(lambda: ntt.interpolate(x, NBITS, NBITS + 1), 20)
-    plain_ms = _time_ms(lambda: ntt.interpolate_plain(x, NBITS, NBITS + 1), 3)
-    leaf_ms = _time_ms(lambda: ntt._leaf(leaf_x, ntt.KMAX, root), 20)
-    leaf_plain_ms = _time_ms(lambda: ntt.leaf_plain(leaf_x, ntt.KMAX, root), 3)
-    print(f"ntt interpolate [2^{NBITS},{WIDTH}]->[2^{NBITS + 1},{WIDTH}]: "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, max_abs_err {err}")
-    print(f"ntt leaf [2^{ntt.KMAX},2^16]: kernel {leaf_ms:.3f} ms, "
-          f"plain {leaf_plain_ms:.3f} ms, max_abs_err {err_leaf}")
-    results.append(dict(name=kernels.NTT.name, err=max(err, err_leaf), ms=ms,
-                        plain_ms=plain_ms, leaf_ms=leaf_ms,
-                        leaf_plain_ms=leaf_plain_ms))
+    q = rand(2 * n, 3)
+    grp = rand(1 << 5, 3 << 16)
+    ntt_cases = [
+        _hold(f"ntt interpolate [2^{NBITS},{WIDTH}]->[2^{ext},{WIDTH}]",
+              lambda: ntt.interpolate(x, NBITS, ext),
+              lambda: ntt.interpolate_plain(x, NBITS, ext), 20, 3,
+              8 * WIDTH * 3 * n,
+              _ntt_imads(NBITS, WIDTH, True) + _ntt_imads(ext, WIDTH, False)),
+        _hold(f"ntt leaf [2^{ntt.KMAX},2^16]",
+              lambda: ntt._leaf(leaf_x, ntt.KMAX, root),
+              lambda: ntt.leaf_plain(leaf_x, ntt.KMAX, root), 20, 3,
+              8 * 2 * leaf_x.numel(), _ntt_imads(ntt.KMAX, 1 << 16, False)),
+        _hold(f"ntt Q-split intt [2^{ext},3]", lambda: ntt.intt(q, ext),
+              lambda: ntt.intt_plain(q, ext), 20, 2, 8 * 2 * q.numel(),
+              _ntt_imads(ext, 3, True)),
+        _hold(f"ntt Q-split ntt [2^{ext},3]", lambda: ntt.ntt(q, ext),
+              lambda: ntt.ntt_plain(q, ext), 20, 2, 8 * 2 * q.numel(),
+              _ntt_imads(ext, 3, False)),
+        _hold("ntt fold group intt [2^5,3*2^16]", lambda: ntt.intt(grp, 5),
+              lambda: ntt.intt_plain(grp, 5), 20, 3, 8 * 2 * grp.numel(),
+              _ntt_imads(5, 3 << 16, True)),
+    ]
+    del x, leaf_x, q, grp
 
-    # Poseidon: permute at B = 2^20, and one Merkle level of 2^21 digests
-    st = rand(1 << 20, 12)
-    err_perm = _max_abs_err(poseidon.permute(st), poseidon.permute_plain(st))
-    level = rand(1 << (NBITS + 1), 4)
-    pairs = level.view(-1, 8)
-    err_lvl = _max_abs_err(poseidon.hash_n(pairs), poseidon.hash_n_plain(pairs))
-    perm_ms = _time_ms(lambda: poseidon.permute(st), 20)
-    perm_plain_ms = _time_ms(lambda: poseidon.permute_plain(st), 2)
-    lvl_ms = _time_ms(lambda: poseidon.hash_n(pairs), 20)
-    lvl_plain_ms = _time_ms(lambda: poseidon.hash_n_plain(pairs), 2)
-    print(f"poseidon permute B=2^20: kernel {perm_ms:.3f} ms, plain "
-          f"{perm_plain_ms:.3f} ms, max_abs_err {err_perm}")
-    print(f"poseidon merkle level 2^{NBITS + 1} digests: kernel {lvl_ms:.3f} "
-          f"ms, plain {lvl_plain_ms:.3f} ms, max_abs_err {err_lvl}")
-    results.append(dict(name=kernels.POSEIDON.name, err=max(err_perm, err_lvl),
-                        ms=lvl_ms, plain_ms=lvl_plain_ms, permute_ms=perm_ms,
-                        permute_plain_ms=perm_plain_ms))
-    return results
+    # Poseidon: one Merkle level of 2^21 digests, a bare permutation at
+    # B = 2^20, the first fold tree's [2^16, 96] leaves (four 24-wide
+    # chunks of three sponge calls, then two over their digests)
+    pairs = rand(n * 2, 4).view(-1, 8)
+    st = rand(n, 12)
+    leaves = rand(1 << 16, 96)
+    pos_cases = [
+        _hold(f"poseidon merkle level 2^{ext} digests",
+              lambda: poseidon.hash_n(pairs),
+              lambda: poseidon.hash_n_plain(pairs), 20, 2,
+              8 * (pairs.numel() + pairs.shape[0] * 4),
+              POSEIDON_IMADS * pairs.shape[0]),
+        _hold(f"poseidon permute B=2^{NBITS}", lambda: poseidon.permute(st),
+              lambda: poseidon.permute_plain(st), 20, 2, 8 * 2 * st.numel(),
+              POSEIDON_IMADS * st.shape[0]),
+        _hold("poseidon fold-tree leaves [2^16,96]",
+              lambda: poseidon.hash_leaves(leaves, 96),
+              lambda: poseidon.hash_leaves_plain(leaves, 96), 20, 2,
+              8 * (leaves.numel() + leaves.shape[0] * 4),
+              POSEIDON_IMADS * 14 * leaves.shape[0]),
+    ]
+    return [dict(cases[0], name=k.name, err=max(c["err"] for c in cases),
+                 cases=cases)
+            for k, cases in ((kernels.NTT, ntt_cases),
+                             (kernels.POSEIDON, pos_cases))]
 
 
 def main() -> int:
@@ -183,7 +269,8 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated(dev)
     t_gen = sum(sec for _, sec in prof.stages)
     digest = hashlib.sha256(proof_json).hexdigest()
-    jax_free = "jax" not in sys.modules
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
     print(f"main path: stark_prove on cuda, chain AIR 2^{NBITS} x {WIDTH}")
     for stage, sec in prof.stages:
         print(f"  {stage}: {sec:.3f} s")
@@ -191,19 +278,19 @@ def main() -> int:
           f"{t_total - t_gen:.3f} s; total {t_total:.3f} s; peak device "
           f"memory {peak / 2**30:.3f} GiB; launches {launches}")
     print(f"  proof JSON {len(proof_json)} bytes, sha256 {digest}; equal to "
-          f"the host engine's: {digest == HOST_PROOF_SHA256}; jax imported: "
-          f"{not jax_free}")
+          f"the host engine's: {digest == HOST_PROOF_SHA256}; JAX or JAX-"
+          f"package modules loaded: {foreign}")
     report.update(prove_s=t_total, stark_gen_s=t_gen, stages=prof.stages,
                   peak_bytes=peak, launches=launches, verified=True,
                   proof_bytes=len(proof_json), proof_sha256=digest,
                   proof_identical=digest == HOST_PROOF_SHA256,
-                  jax_imported=not jax_free)
+                  foreign_modules=foreign)
     if any(n == 0 for n in launches.values()):
         return _fail(f"a kernel of the main path never launched: {launches}")
     if digest != HOST_PROOF_SHA256:
         return _fail("the port's proof differs from the host engine's")
-    if not jax_free:
-        return _fail("JAX was imported")
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
 
     print(f"report: {json.dumps(report)}")
     by_name = {c["name"]: c for c in checks}
@@ -211,7 +298,10 @@ def main() -> int:
                      "replaces": k.replaces, "launches": launches[k.name],
                      "max_abs_err": by_name[k.name]["err"],
                      "ms": by_name[k.name]["ms"],
-                     "plain_ms": by_name[k.name]["plain_ms"]}
+                     "plain_ms": by_name[k.name]["plain_ms"],
+                     "bound_ms": by_name[k.name]["bound_ms"],
+                     "bound_by": by_name[k.name]["bound_by"],
+                     "library_ms": None}
                     for k in kernels.KERNELS]
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernel_lines}))

@@ -1,20 +1,19 @@
 """Chain-AIR prove benchmark of the port on one CUDA device.
 
-Port of scripts/bench_big.py: the repo's benchmark AIR (its
-`build_chain_air`: W columns of multiplicative chains over 2^nbits rows,
-pinned by public inputs), blowup 2, GL hash, and that script's FRI steps.
+Port of scripts/bench_big.py: the repo's benchmark AIR (`build_chain_air`:
+W columns of multiplicative chains over 2^nbits rows, pinned by public
+inputs), blowup 2, GL hash, and that script's FRI steps.
 
     python -m eigen_zkvm_tpu_torch.bench_chain --nbits 20 --width 8 \\
-        --runs 3 --host --trace prove_trace.json
+        --runs 3 --trace prove_trace.json
 
-The kernels build first and setup runs once per engine.  Each run proves
-with Engine(cuda); with --host the same inputs also go through
-eigen_zkvm_tpu's host engine (EIGEN_ZKVM_ENGINE=host, which imports no JAX),
-the two alternating (port first in even runs, host first in odd ones).
-Every proof's JSON must be byte-identical and the port's must verify.
-EIGEN_ZKVM_SYNC=1 drains the device at every stage tick.
+The kernels build first and setup runs once.  Each run proves with
+Engine(cuda), device-resident; every proof's JSON must be byte-identical
+and the first must verify.  EIGEN_ZKVM_SYNC=1 drains the device at every
+stage tick.  (The same-call comparison with eigen_zkvm_tpu's host engine is
+tests/test_torch_prove.py::test_port_on_the_card_matches_host_engine_at_smoke_size.)
 
-With --trace, one more port prove runs under torch.profiler and its Chrome
+With --trace, one more prove runs under torch.profiler and its Chrome
 trace is written to the path given.  Device time is the sum over the
 trace's device-side events (kernels, memcpy, memset), by name; the busy
 share is that sum over the profiled prove's wall.  The sum of
@@ -28,25 +27,90 @@ from __future__ import annotations
 
 import argparse
 import hashlib
-import importlib.util
 import json
 import os
 import sys
 import time
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # device-side rows of a trace that are the profiler's own work
 _PROFILER_ROWS = ("Activity Buffer Request",)
 
 
 def build_chain_air(nbits: int, width: int):
-    """(pil, const_pols, cm_pols) of scripts/bench_big.py::build_chain_air
-    (scripts/ is no package, so it is loaded from its file)."""
-    spec = importlib.util.spec_from_file_location(
-        "bench_big", os.path.join(_REPO, "scripts", "bench_big.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.build_chain_air(nbits, width)
+    """(pil, const_pols, cm_pols) of scripts/bench_big.py::build_chain_air:
+    W commit pols with c_j' = k_j * c_j off the last row (k_j = j + 2),
+    pinned by public inputs c_j(N - 1)."""
+    from .ops import gl
+    from .stark.pil_builder import PilBuilder
+    from .stark.polsarray import PolsArray
+
+    p = PilBuilder(nbits)
+    islast = p.const_pol("Chain.ISLAST")
+    cols = [p.cm_pol(f"Chain.c{j}") for j in range(width)]
+    N = 1 << nbits
+
+    one_m = p.sub(p.num(1), p.const(islast))
+    for j, c in enumerate(cols):
+        end = p.public_input(f"end{j}", p.cm(c), N - 1)
+        p.identity(p.sub(p.mul(one_m,
+                               p.sub(p.cm(c, True),
+                                     p.mul(p.num(j + 2), p.cm(c)))),
+                         p.num(0)), "chain.pil", j)
+        p.identity(p.sub(p.mul(p.const(islast), p.sub(p.cm(c), end)),
+                         p.num(0)), "chain.pil", width + j)
+    pil = p.build()
+
+    const_pols = PolsArray(pil, PolsArray.CONSTANT)
+    const_pols.buffer[N - 1, islast] = 1
+
+    cm = PolsArray(pil, PolsArray.COMMIT)
+    for j, c in enumerate(cols):
+        cm.buffer[:, c] = gl.to_u64(gl.powers(j + 2, N))  # k^0 .. k^(N-1)
+    return pil, const_pols, cm
+
+
+def pil_to_json(pil) -> dict:
+    """The PIL JSON that stark/types.py::load_pil reads (the writer of
+    eigen_zkvm_tpu/cli.py, `_pil_to_json`)."""
+    def expr(e):
+        d = {"op": e.op, "deg": e.deg}
+        if e.id is not None:
+            d["id"] = e.id
+        if e.next is not None:
+            d["next"] = bool(e.next)
+        if e.value is not None:
+            d["value"] = e.value
+        if e.values is not None:
+            d["values"] = [expr(v) for v in e.values]
+        if e.idQ is not None:
+            d["idQ"] = e.idQ
+        if e.keep is not None:
+            d["keep"] = e.keep
+        return d
+
+    refs = {}
+    for k, v in pil.references.items():
+        r = {"type": v.type_, "id": v.id, "polDeg": v.polDeg,
+             "isArray": v.isArray}
+        if v.isArray:
+            r["len"] = v.len
+        refs[k] = r
+    return {
+        "nCommitments": pil.nCommitments, "nQ": pil.nQ, "nIm": pil.nIm,
+        "nConstants": pil.nConstants,
+        "publics": [{"polType": p.polType, "polId": p.polId, "idx": p.idx,
+                     "id": p.id, "name": p.name} for p in pil.publics],
+        "references": refs,
+        "expressions": [expr(e) for e in pil.expressions],
+        "polIdentities": [{"e": p.e, "fileName": p.fileName, "line": p.line}
+                          for p in pil.polIdentities],
+        "plookupIdentities": [],
+        "permutationIdentities": [],
+        "connectionIdentities": [
+            {"pols": c.pols, "connections": c.connections,
+             "fileName": c.fileName, "line": c.line}
+            for c in pil.connectionIdentities],
+    }
 
 
 def chain_struct_json(nbits: int, queries: int) -> dict:
@@ -63,7 +127,7 @@ def chain_struct_json(nbits: int, queries: int) -> dict:
 
 
 def chain_struct(nbits: int, queries: int):
-    from eigen_zkvm_tpu.stark.types import StarkStruct
+    from .stark.types import StarkStruct
 
     return StarkStruct.from_json(chain_struct_json(nbits, queries))
 
@@ -72,15 +136,13 @@ def write_chain_files(directory: str, nbits: int, width: int,
                       queries: int) -> dict:
     """The chain AIR as the files stark/prove.py::stark_prove reads:
     {"stark_struct", "pil", "const", "cm"} -> path."""
-    from eigen_zkvm_tpu.cli import _pil_to_json
-
     pil, const_pols, cm_pols = build_chain_air(nbits, width)
     files = {k: os.path.join(directory, f"chain.{k}")
              for k in ("stark_struct", "pil", "const", "cm")}
     with open(files["stark_struct"], "w") as f:
         json.dump(chain_struct_json(nbits, queries), f)
     with open(files["pil"], "w") as f:
-        json.dump(_pil_to_json(pil), f)
+        json.dump(pil_to_json(pil), f)
     const_pols.save(files["const"])
     cm_pols.save(files["cm"])
     return files
@@ -113,22 +175,18 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=8)
     ap.add_argument("--queries", type=int, default=8)
     ap.add_argument("--runs", type=int, default=3)
-    ap.add_argument("--host", action="store_true",
-                    help="also prove with eigen_zkvm_tpu's host engine")
     ap.add_argument("--trace", metavar="PATH",
-                    help="profile one more port prove; Chrome trace to PATH")
+                    help="profile one more prove; Chrome trace to PATH")
     args = ap.parse_args(argv)
-    os.environ["EIGEN_ZKVM_ENGINE"] = "host"  # the reference: no JAX probe
 
     import torch
 
-    from eigen_zkvm_tpu.stark.serializer import stark_proof_to_json
-    from eigen_zkvm_tpu.stark.stark_verify import stark_verify
-
     from . import kernels
     from .stark.engine import Engine
+    from .stark.serializer import stark_proof_to_json
     from .stark.stark_gen import stark_gen
     from .stark.stark_setup import StarkSetup
+    from .stark.stark_verify import stark_verify
     from .utils.devices import card_line, cuda_device
     from .utils.profiler import Prof
 
@@ -147,17 +205,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     setup = StarkSetup(const_pols, pil, ss, engine)
     torch.cuda.synchronize(dev)
-    report["port_setup_s"] = time.perf_counter() - t0
-    if args.host:
-        from eigen_zkvm_tpu.stark import stark_gen as host_gen
-        from eigen_zkvm_tpu.stark import stark_setup as host_setup
+    report["setup_s"] = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        hsetup = host_setup.StarkSetup(const_pols, pil, ss)
-        report["host_setup_s"] = time.perf_counter() - t0
-
-    def port(prof=None):
+    def prove(prof=None):
         prof = prof or Prof("stark_gen", dev, on=True)
+        kernels.reset_counts()
         t0 = time.perf_counter()
         proof = stark_gen(cm_pols, const_pols, setup.const_tree,
                           setup.starkinfo, setup.program, ss, engine=engine,
@@ -165,27 +217,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)
         return proof, time.perf_counter() - t0, prof.stages
 
-    def host():
-        t0 = time.perf_counter()
-        proof = host_gen.stark_gen(cm_pols, const_pols, hsetup.const_tree,
-                                   hsetup.starkinfo, hsetup.program, ss)
-        return proof, time.perf_counter() - t0, []
-
     runs, jsons = [], set()
     for i in range(args.runs):
-        order = ["port", "host"] if i % 2 == 0 else ["host", "port"]
-        for who in order if args.host else ["port"]:
-            proof, wall, stages = port() if who == "port" else host()
-            if not runs:
-                report["verified"] = bool(stark_verify(
-                    proof, setup.const_root, setup.starkinfo, ss,
-                    setup.program))
-            text = stark_proof_to_json(proof, "GL")
-            jsons.add(text)
-            runs.append({"engine": who, "run": i, "prove_s": wall,
-                         "stages": stages})
-            print(f"{who} prove {i}: {wall:.3f} s "
-                  + " ".join(f"{k}={v:.3f}" for k, v in stages), flush=True)
+        proof, wall, stages = prove()
+        if not runs:
+            report["verified"] = bool(stark_verify(
+                proof, setup.const_root, setup.starkinfo, ss, setup.program))
+        jsons.add(stark_proof_to_json(proof, "GL"))
+        runs.append({"run": i, "prove_s": wall, "stages": stages,
+                     "launches": kernels.counts()})
+        print(f"prove {i}: {wall:.3f} s "
+              + " ".join(f"{k}={v:.3f}" for k, v in stages)
+              + f" launches {kernels.counts()}", flush=True)
     report["runs"] = runs
     report["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     report["identical"] = len(jsons) == 1
@@ -197,7 +240,7 @@ def main(argv=None) -> int:
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as tp:
-            _, wall, _ = port()
+            _, wall, _ = prove()
         tp.export_chrome_trace(args.trace)
         dt = device_time(tp)
         dt["wall_ms"] = wall * 1e3
@@ -210,13 +253,16 @@ def main(argv=None) -> int:
         for name, ms, n in dt["rows"][:12]:
             print(f"  {ms:10.3f} ms {n:6d}  {name[:70]}")
 
-    report["jax_imported"] = "jax" in sys.modules
+    report["foreign_modules"] = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
     print(f"peak device memory {report['peak_bytes'] / 2**30:.3f} GiB; "
           f"proofs identical {report['identical']}; verified "
-          f"{report['verified']}; jax imported {report['jax_imported']}")
+          f"{report['verified']}; JAX-package modules loaded "
+          f"{report['foreign_modules']}")
     print(json.dumps(report), flush=True)
     ok = report["identical"] and report["verified"] \
-        and not report["jax_imported"]
+        and not report["foreign_modules"]
     return 0 if ok else 1
 
 

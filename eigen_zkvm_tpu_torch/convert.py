@@ -1,5 +1,8 @@
 """Carry state between eigen_zkvm_tpu (JAX) and the port.
 
+Nothing here imports the JAX package: its objects are read by duck typing,
+its limb pairs as numpy (or JAX) arrays.
+
 The JAX package keeps a field element as a u32 (lo, hi) limb pair; the port
 keeps its u64 bit pattern in one int64 tensor (ops/gl.py).
 """
@@ -8,8 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from eigen_zkvm_tpu.hash.merkle_gl import MerkleTreeGL
-
+from .hash.merkle import ZeroMerkleTreeGL
 from .ops import commit, gl
 from .stark.stark_setup import StarkSetup
 
@@ -32,10 +34,11 @@ def to_limb_pair(t: torch.Tensor):
 
 
 def _tree_levels(tree):
-    """(elements [h, w] u64, node levels) of a JAX-package GL const tree:
-    the host MerkleTreeGL, or commit_tpu.DeviceMerkleTreeGL read through
-    its pickled state (numpy, no JAX call)."""
-    if tree.levels:
+    """(elements [h, w] u64, node levels) of a JAX-package GL const tree,
+    duck-typed: the host MerkleTreeGL through its `levels`, or
+    commit_tpu.DeviceMerkleTreeGL through its pickled state (numpy, no JAX
+    call)."""
+    if getattr(tree, "levels", None):
         return tree.elements, tree.levels
     d = tree.__getstate__()
     flat = _join(*d["_flat"])
@@ -54,8 +57,8 @@ def setup_from_jax(setup, device: torch.device | str) -> StarkSetup:
     out.const_root = setup.const_root
     out.starkinfo = setup.starkinfo
     out.program = setup.program
-    if type(tree) is MerkleTreeGL and tree.width == 0:
-        out.const_tree = tree
+    if tree.width == 0:
+        out.const_tree = ZeroMerkleTreeGL.build(tree.height)
         return out
     elements, levels = _tree_levels(tree)
     height, width = elements.shape
@@ -67,5 +70,5 @@ def setup_from_jax(setup, device: torch.device | str) -> StarkSetup:
         nodes[off : off + lvl.shape[0]] = lvl
     out.const_tree = commit.DeviceMerkleTreeGL(
         gl.from_u64(nodes, device), height, width,
-        device_elements=gl.from_u64(elements, device))
+        gl.from_u64(elements, device))
     return out

@@ -1,7 +1,7 @@
 """Build, load and launch the port's CUDA kernels (`csrc/*.cu`).
 
-The sources compile with nvcc for sm_90a into one shared library with a
-plain C interface, in `eigen_zkvm_tpu_torch/_build/` (git-ignored), at first
+The sources compile with nvcc for sm_90a, one process per source, and link
+into one shared library with a plain C interface, in `eigen_zkvm_tpu_torch/_build/` (git-ignored), at first
 use: when a CUDA tensor first reaches a kernel.  A source newer than the
 library triggers a rebuild.  The library is loaded with ctypes; every pointer
 and the stream go in as `c_void_p`, every C entry returns
@@ -28,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libeigen_zkvm_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -60,21 +60,38 @@ def _stale() -> bool:
 
 def build(force: bool = False) -> dict:
     """Compile csrc/*.cu into LIB_PATH when it is missing or stale (or
-    `force`).  Returns {"seconds", "log"}; `log` holds ptxas's register and
+    `force`): one nvcc per source, all started together, then one link.
+    Returns {"seconds", "log"}; `log` holds ptxas's register and
     shared-memory report."""
     if not force and not _stale():
         return {"seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *sorted(glob.glob(os.path.join(CSRC, "*.cu")))]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}."
+                                      f"{os.getpid()}.o")
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    outputs = [p.communicate() for _, _, p in jobs]  # reap all before raising
+    log = ""
+    for (src, _, p), (out, err) in zip(jobs, outputs):
+        if p.returncode != 0:
+            raise KernelError(f"nvcc failed on {src} ({p.returncode}):\n{err}")
+        log += out + err
+    objs = [obj for _, obj, _ in jobs]
+    r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                       capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     seconds = time.perf_counter() - t0
     if r.returncode != 0:
-        raise KernelError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        raise KernelError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent build never loads half a file
-    return {"seconds": seconds, "log": r.stdout + r.stderr}
+    return {"seconds": seconds, "log": log + r.stdout + r.stderr}
 
 
 _lock = threading.Lock()

@@ -1,11 +1,12 @@
-"""Commit backend: coset LDE + Poseidon-GL Merkle tree on a torch device.
+"""Commit backend: coset LDE + Poseidon-GL Merkle tree on a torch device,
+and the quotient split.
 
 Port of eigen_zkvm_tpu/ops/commit_tpu.py (`tpu_extend_and_merkelize`,
-`tpu_merkelize`, `DeviceMerkleTreeGL`).  The LDE and every tree node stay on
-the device; only the root (32 bytes) comes back for the transcript, and
-query rows and sibling paths come back through one batched gather
-(`prefetch`).  Roots and proofs are identical to the host
-hash/merkle_gl.py::MerkleTreeGL.
+`tpu_merkelize`, `DeviceMerkleTreeGL`, `_q_split`).  The LDE and every tree
+node stay on the device; only the root (32 bytes) comes back for the
+transcript, and query rows and sibling paths come back through one batched
+gather (`prefetch`).  Roots and proofs are identical to the JAX package's
+host hash/merkle_gl.py::MerkleTreeGL; hash/merkle.py verifies them.
 
 Node store: one [total, 4] tensor, level after level from the leaf digests
 to the root.  A level of odd size n > 1 reserves n + 1 rows and its last row
@@ -17,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from eigen_zkvm_tpu.hash.merkle_gl import MerkleTreeGL
-
+from ..hash.merkle import ZeroMerkleTreeGL
 from . import gl, ntt, poseidon
 
 
@@ -51,34 +51,32 @@ def build_nodes(elements: torch.Tensor, width: int) -> torch.Tensor:
     return nodes
 
 
-class DeviceMerkleTreeGL(MerkleTreeGL):
-    """MerkleTreeGL whose nodes and leaf elements live on a torch device.
+class DeviceMerkleTreeGL:
+    """A GL Merkle tree whose nodes and leaf elements live on a torch device.
 
-    `levels` stays empty.  `elements` is the host copy, fetched lazily from
-    the device elements when a host consumer reads it."""
+    `device_elements` is the committed [height, width] tensor; `elements`
+    is its host copy, fetched lazily when a host consumer reads it."""
 
     def __init__(self, nodes: torch.Tensor, height: int, width: int,
-                 device_elements: torch.Tensor | None = None,
-                 elements: np.ndarray | None = None):
-        super().__init__()
+                 device_elements: torch.Tensor):
         self._nodes = nodes
         self._sizes, self._offsets = level_layout(height)
-        self._device_elements = device_elements
-        self._elements = elements
+        self.device_elements = device_elements
+        self._elements = None
         self._root = None
         self._pref: dict[int, tuple] = {}  # idx -> (row, [sibling digests])
         self.height = height
         self.width = width
 
     @property
-    def elements(self):
-        if self._elements is None and self._device_elements is not None:
-            self._elements = gl.to_u64(self._device_elements)
+    def elements(self) -> np.ndarray:
+        if self._elements is None:
+            self._elements = gl.to_u64(self.device_elements)
         return self._elements
 
-    @elements.setter
-    def elements(self, v):
-        self._elements = v
+    def to_extend(self) -> np.ndarray:
+        """The committed values on the host, [height, width]."""
+        return self.elements
 
     def root(self) -> np.ndarray:
         if self._root is None:
@@ -101,11 +99,8 @@ class DeviceMerkleTreeGL(MerkleTreeGL):
         sib = gl.to_u64(self._nodes.index_select(
             0, torch.from_numpy(path.reshape(-1)).to(dev))).reshape(
                 len(todo), depth, 4)
-        if self._elements is not None:
-            rows = self._elements[idx]
-        else:
-            rows = gl.to_u64(self._device_elements.index_select(
-                0, torch.from_numpy(idx).to(dev)))
+        rows = gl.to_u64(self.device_elements.index_select(
+            0, torch.from_numpy(idx).to(dev)))
         for k, i in enumerate(todo):
             self._pref[i] = (rows[k], [sib[k, lvl] for lvl in range(depth)])
 
@@ -123,41 +118,51 @@ class DeviceMerkleTreeGL(MerkleTreeGL):
         d = self.__dict__.copy()
         d["_device"] = str(self._nodes.device)
         d["_nodes"] = gl.to_u64(self._nodes).copy()
-        if self._device_elements is not None:
-            d["_device_elements"] = gl.to_u64(self._device_elements).copy()
+        d["device_elements"] = gl.to_u64(self.device_elements).copy()
+        d["_elements"] = None
         return d
 
     def __setstate__(self, d):
         device = torch.device(d.pop("_device"))
         d["_nodes"] = gl.from_u64(d["_nodes"], device)
-        if d["_device_elements"] is not None:
-            d["_device_elements"] = gl.from_u64(d["_device_elements"], device)
+        d["device_elements"] = gl.from_u64(d["device_elements"], device)
         self.__dict__.update(d)
 
 
-def _empty_tree(height: int) -> MerkleTreeGL:
-    return MerkleTreeGL().merkelize(np.zeros((height, 0), dtype=np.uint64),
-                                    0, height)
-
-
-def extend_and_merkelize(buf: np.ndarray, nbits: int, nbits_ext: int,
-                         device: torch.device) -> MerkleTreeGL:
-    """buf: [2^nbits, n_pols] u64 section -> tree over its coset LDE on
-    `device`.  The LDE comes back to the host only when someone reads
-    `tree.elements`."""
+def extend_and_merkelize(buf: torch.Tensor, nbits: int, nbits_ext: int):
+    """buf: [2^nbits, n_pols] section -> the tree over its coset LDE; the
+    LDE stays on buf's device as `tree.device_elements`."""
     n_pols = buf.shape[1]
     if n_pols == 0:
-        return _empty_tree(1 << nbits_ext)
-    lde = ntt.interpolate(gl.from_u64(buf, device), nbits, nbits_ext)
+        return ZeroMerkleTreeGL.build(1 << nbits_ext)
+    lde = ntt.interpolate(buf, nbits, nbits_ext)
     return DeviceMerkleTreeGL(build_nodes(lde, n_pols), 1 << nbits_ext,
-                              n_pols, device_elements=lde)
+                              n_pols, lde)
 
 
-def merkelize(buf: np.ndarray, device: torch.device) -> MerkleTreeGL:
-    """Tree over an already-extended [height, width] host section; the host
-    buffer serves as `elements`."""
+def merkelize(buf: torch.Tensor):
+    """The tree over an already-extended [height, width] section."""
     height, width = buf.shape
     if width == 0:
-        return _empty_tree(height)
-    nodes = build_nodes(gl.from_u64(buf, device), width)
-    return DeviceMerkleTreeGL(nodes, height, width, elements=buf)
+        return ZeroMerkleTreeGL.build(height)
+    return DeviceMerkleTreeGL(build_nodes(buf, width), height, width, buf)
+
+
+def q_split(q: torch.Tensor, q_dim: int, q_deg: int, nbits: int,
+            nbits_ext: int) -> torch.Tensor:
+    """The quotient [Next, q_dim] -> cm4_2ns [Next, q_dim * q_deg]
+    (commit_tpu._q_split): iNTT over the extended domain, each degree-N
+    monomial block unscaled off the coset by SHIFT^(-N*p) and zero-padded,
+    the blocks side by side, NTT back to evaluations."""
+    N, Next = 1 << nbits, 1 << nbits_ext
+    qq1 = ntt.intt(q, nbits_ext)
+    qq2 = torch.zeros((Next, q_dim * q_deg), dtype=torch.int64,
+                      device=q.device)
+    shift_inv_n = gl.exp_int(gl.inv_int(gl.SHIFT), N)
+    cur_s = 1
+    for p in range(q_deg):
+        qq2[:N, q_dim * p : q_dim * (p + 1)] = gl.mul(
+            qq1[p * N : (p + 1) * N], gl.as_i64(cur_s))
+        cur_s = gl.mul_int(cur_s, shift_inv_n)
+    del qq1
+    return ntt.ntt(qq2, nbits_ext)

@@ -12,6 +12,8 @@ canonical for canonical inputs, so every implementation agrees bit for bit.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -131,3 +133,67 @@ def sum_mod(v, dim: int):
             s = torch.cat([s, v[-1:]], dim=0)
         v = s
     return v[0]
+
+
+def full(shape, value: int, device) -> torch.Tensor:
+    """A tensor of one field element (u64 value), made on `device` by a
+    fill (no host-to-device copy)."""
+    return torch.full(shape, as_i64(value), dtype=torch.int64, device=device)
+
+
+def powers(base: int, n: int, device=None) -> torch.Tensor:
+    """[base^0, ..., base^(n-1)] by log-doubling (each doubling appends the
+    current powers times base^m)."""
+    pows = full((1,), 1, device)
+    cur = as_i64(base)
+    while pows.shape[0] < n:
+        pows = torch.cat([pows, mul(pows, cur)])
+        cur = as_i64(mul_int(cur, cur))
+    return pows[:n]
+
+
+# ---- scalar helpers on Python ints (u64 values, not bit patterns): the
+# transcript-side points, twiddle seeds and table builders of the host
+
+GENERATOR = 7
+SHIFT = 49          # coset shift of the LDE domain
+TWO_ADICITY = 32
+
+
+def mul_int(a: int, b: int) -> int:
+    return (int(a) % (1 << 64)) * (int(b) % (1 << 64)) % P_INT
+
+
+def exp_int(a: int, e: int) -> int:
+    return pow(int(a) % (1 << 64), int(e), P_INT)
+
+
+def inv_int(a: int) -> int:
+    return exp_int(a, P_INT - 2)
+
+
+@functools.lru_cache(maxsize=None)
+def root_of_unity(nbits: int) -> int:
+    """The canonical primitive 2^nbits-th root: 7^((p-1)/2^32) squared down
+    32 - nbits times."""
+    if not 0 <= nbits <= TWO_ADICITY:
+        raise ValueError(f"no 2^{nbits}-th root of unity in GL")
+    w = exp_int(GENERATOR, (P_INT - 1) >> TWO_ADICITY)
+    for _ in range(TWO_ADICITY - nbits):
+        w = w * w % P_INT
+    return w
+
+
+def shift_powers(nbits: int, device=None) -> torch.Tensor:
+    """[SHIFT^0, ..., SHIFT^(2^nbits - 1)]."""
+    return powers(SHIFT, 1 << nbits, device)
+
+
+@functools.lru_cache(maxsize=64)
+def bit_reverse(nbits: int) -> torch.Tensor:
+    """The bit-reversal permutation of 2^nbits indices (CPU int64)."""
+    idx = torch.arange(1 << nbits)
+    rev = torch.zeros_like(idx)
+    for b in range(nbits):
+        rev |= ((idx >> b) & 1) << (nbits - 1 - b)
+    return rev

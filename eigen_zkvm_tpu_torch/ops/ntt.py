@@ -13,18 +13,14 @@ forward ladder with the inverse root and folds 1/n into the last leaf's
 store; `interpolate` folds the coset scale n^-1 * SHIFT^j there too and
 writes straight into the zero-padded extended buffer.
 
-Twiddle tables are built on the host (numpy, fields/gl64.py) and copied to
-the device once per (size, root, device).
+Twiddle tables are built on the host (CPU tensors, ops/gl.py) and copied
+to the device once per (size, root, device).
 """
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
-
-from eigen_zkvm_tpu.fields import gl64
-from eigen_zkvm_tpu.poly import ntt as ntt_np
 
 from .. import kernels
 from . import gl
@@ -36,62 +32,50 @@ KMAX = 8
 
 
 def _root(nbits: int) -> int:
-    return int(gl64.root_of_unity(nbits))
+    return gl.root_of_unity(nbits)
 
 
 def _root_inv(nbits: int) -> int:
-    return pow(_root(nbits), gl64.P_INT - 2, gl64.P_INT)
-
-
-@functools.lru_cache(maxsize=64)
-def _powers(base: int, n: int) -> np.ndarray:
-    """[base^0, ..., base^(n-1)] by log-doubling on the host."""
-    pows = np.ones(1, dtype=np.uint64)
-    cur = np.uint64(base)
-    while pows.shape[0] < n:
-        pows = np.concatenate([pows, gl64.mul(pows, cur)])
-        cur = gl64.mul(cur, cur)
-    return pows[:n]
+    return gl.inv_int(_root(nbits))
 
 
 def _device_table(build):
-    """Cache the host table build(*args) as a tensor per (args, device)."""
+    """Cache the host table build(*args) (a CPU tensor) per (args, device)."""
     @functools.lru_cache(maxsize=64)
     def get(*args, device: torch.device) -> torch.Tensor:
-        return gl.from_u64(build(*args), device)
+        return build(*args).to(device)
     return get
 
 
 @_device_table
-def _roots(log_n: int, root: int) -> np.ndarray:
+def _roots(log_n: int, root: int) -> torch.Tensor:
     """root^j for j < max(n/2, 1): the leaf's stage twiddles."""
-    return _powers(root, max((1 << log_n) // 2, 1))
+    return gl.powers(root, max((1 << log_n) // 2, 1))
 
 
 @_device_table
-def _four_step(nbits: int, a: int, root: int) -> np.ndarray:
+def _four_step(nbits: int, a: int, root: int) -> torch.Tensor:
     """root^(k1*i2) for k1 < 2^a, i2 < 2^(nbits-a), flattened."""
     n1, n2 = 1 << a, 1 << (nbits - a)
-    base = _powers(root, n2)
-    out = np.empty((n1, n2), dtype=np.uint64)
+    base = gl.powers(root, n2)
+    out = torch.empty((n1, n2), dtype=torch.int64)
     out[0] = 1
     for k1 in range(1, n1):
-        out[k1] = gl64.mul(out[k1 - 1], base)
+        out[k1] = gl.mul(out[k1 - 1], base)
     return out.reshape(-1)
 
 
 @_device_table
-def _coset_scale(nbits: int) -> np.ndarray:
+def _coset_scale(nbits: int) -> torch.Tensor:
     """n^-1 * SHIFT^j: the LDE's coefficient scale."""
-    return gl64.mul(ntt_np.shift_powers(nbits),
-                    gl64.inv(np.uint64(1 << nbits)))
+    return gl.mul(gl.shift_powers(nbits),
+                  gl.as_i64(gl.inv_int(1 << nbits)))
 
 
 @_device_table
-def _n_inv(nbits: int) -> np.ndarray:
+def _n_inv(nbits: int) -> torch.Tensor:
     """n^-1 per row: the inverse transform's scale."""
-    return np.full(1 << nbits, gl64.inv(np.uint64(1 << nbits)),
-                   dtype=np.uint64)
+    return gl.full((1 << nbits,), gl.inv_int(1 << nbits), None)
 
 
 def leaf_plain(x: torch.Tensor, log_n: int, root: int,
@@ -102,7 +86,7 @@ def leaf_plain(x: torch.Tensor, log_n: int, root: int,
     n, M = x.shape
     P = M if P is None else P
     G = M // P
-    buf = x[torch.from_numpy(ntt_np._bit_reverse_indices(log_n)).to(x.device)]
+    buf = x[gl.bit_reverse(log_n).to(x.device)]
     pows = _roots(log_n, root, device=x.device)
     for s in range(1, log_n + 1):
         m = 1 << s
@@ -165,10 +149,10 @@ def _ntt(x: torch.Tensor, nbits: int, root: int,
     a = min((nbits + 1) // 2, KMAX)
     b = nbits - a
     n1, n2 = 1 << a, 1 << b
-    y = _leaf(x.reshape(n1, n2 * P), a, pow(root, n2, gl64.P_INT),
+    y = _leaf(x.reshape(n1, n2 * P), a, gl.exp_int(root, n2),
               post=_four_step(nbits, a, root, device=x.device), P=P,
               transpose=True)                                   # [n2, n1*P]
-    z = _ntt(y, b, pow(root, n1, gl64.P_INT), post, post_P,
+    z = _ntt(y, b, gl.exp_int(root, n1), post, post_P,
              None if out is None else out.view(n2, n1 * P))
     return z.view(n, P)
 

@@ -4,7 +4,7 @@ Port of eigen_zkvm_tpu/ops/poseidon_jax.py (`permute`, `hash_n`,
 `hash_leaves`) with the Pallas kernels ops/poseidon_pallas.py and
 ops/poseidon_mxu.py folded into one CUDA kernel, csrc/poseidon_gl.cu.
 States are int64 tensors of u64 bit patterns (ops/gl.py); digests are
-bit-exact with eigen_zkvm_tpu/hash/poseidon_gl.py and hash/linearhash_gl.py.
+bit-exact with hash/poseidon.py and eigen_zkvm_tpu/hash/linearhash_gl.py.
 
 `permute` and `hash_n` launch the kernel for CUDA tensors and run the plain
 version (`permute_plain`, `hash_n_plain`) for CPU tensors.  A Merkle level
@@ -17,9 +17,8 @@ import functools
 import numpy as np
 import torch
 
-from eigen_zkvm_tpu.hash import poseidon_gl as pnp
-
 from .. import kernels
+from ..hash import poseidon as pnp
 from . import gl
 
 T = 12
@@ -151,7 +150,7 @@ def _pad_cols(rows: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
-def _hash_fold(rows: torch.Tensor) -> torch.Tensor:
+def _hash_fold(rows: torch.Tensor, sponge) -> torch.Tensor:
     """Sponge-fold [B, w] -> [B, 4] (linearhash_gl._hash_rows)."""
     B, w = rows.shape
     if w <= 4:
@@ -159,22 +158,30 @@ def _hash_fold(rows: torch.Tensor) -> torch.Tensor:
     st = None
     n_full = w // 8
     for i in range(n_full):
-        st = hash_n(rows[:, i * 8 : (i + 1) * 8], st)
+        st = sponge(rows[:, i * 8 : (i + 1) * 8], st)
     if w > n_full * 8:
-        st = hash_n(_pad_cols(rows[:, n_full * 8 :], 8), st)
+        st = sponge(_pad_cols(rows[:, n_full * 8 :], 8), st)
     return st
+
+
+def _leaves(rows: torch.Tensor, width: int, sponge) -> torch.Tensor:
+    if width <= 4:
+        return _pad_cols(rows[:, :width], 4)
+    bs = max(8, -(-width // 4))
+    hsz = -(-width // bs)
+    digs = [_hash_fold(rows[:, c * bs : min((c + 1) * bs, width)], sponge)
+            for c in range(hsz)]
+    if hsz == 1:
+        return digs[0]
+    return _hash_fold(torch.cat(digs, dim=1), sponge)
 
 
 def hash_leaves(rows: torch.Tensor, width: int) -> torch.Tensor:
     """Leaf hash of [B, width] -> [B, 4] (linearhash.rs semantics: chunks of
     max(8, ceil(w/4)) folded independently, then their digests folded)."""
-    B = rows.shape[0]
-    if width <= 4:
-        return _pad_cols(rows[:, :width], 4)
-    bs = max(8, -(-width // 4))
-    hsz = -(-width // bs)
-    digs = [_hash_fold(rows[:, c * bs : min((c + 1) * bs, width)])
-            for c in range(hsz)]
-    if hsz == 1:
-        return digs[0]
-    return _hash_fold(torch.cat(digs, dim=1))
+    return _leaves(rows, width, hash_n)
+
+
+def hash_leaves_plain(rows: torch.Tensor, width: int) -> torch.Tensor:
+    """hash_leaves with every sponge call on hash_n_plain, on any device."""
+    return _leaves(rows, width, hash_n_plain)

@@ -1,13 +1,12 @@
-"""Prover engine of the port: where the commits run.
+"""Prover engine of the port: the device a prove runs on.
 
-Port of eigen_zkvm_tpu/stark/engine.py.  `Engine(None)` runs everything on
-the JAX package's host engine; `Engine(device)` runs the const tree, the four
-stage commits and the FRI fold-tree commits (coset LDE + Poseidon-GL Merkle,
-ops/commit.py) on `device`, with the constraint VM, the Q split, the openings
-and the FRI folds on the host.  A CPU device runs the same device-commit code
-on CPU tensors with the kernels' plain versions.
-
-There is no size-based automatic choice: the caller names the device.
+Port of eigen_zkvm_tpu/stark/engine.py's device-resident configuration
+(commit, VM and FRI all on the accelerator).  Everything a prove computes
+over the domain stays on `device`: the commits, the constraint VM, the Q
+split, the openings, xDivXSubXi and the FRI fold chain.  `Engine()` takes the
+current CUDA device and raises when there is none; `Engine("cpu")` is the
+explicit CPU choice, which runs the same code on CPU tensors with the
+kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -17,16 +16,16 @@ import torch
 class Engine:
     """Resolved engine for one prove."""
 
-    resident = False  # the device VM and FRI chain are not ported yet
-    tpu_vm = False    # the host stark_gen._exec_segment reads this switch
-
     def __init__(self, device: torch.device | str | None = None):
-        if device is not None:
-            device = torch.device(device)
-            if device.type == "cuda" and device.index is None:
-                device = torch.device("cuda", torch.cuda.current_device())
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device: pass device='cpu' to "
+                                   "prove on the CPU")
+            device = "cuda"
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
 
     def __repr__(self):
-        commit = "host" if self.device is None else str(self.device)
-        return f"Engine(commit={commit}, vm=host, resident={self.resident})"
+        return f"Engine(device={self.device}, resident=True)"

@@ -2,21 +2,20 @@
 
 Port of eigen_zkvm_tpu/stark/prove.py::stark_prove: PIL JSON + starkStruct
 JSON + .const/.cm files in, a self-verified proof (and its zkin JSON) out,
-with the commits on `device` (None: the host engine).
+proved on `device` (None: the current CUDA device).
 """
 from __future__ import annotations
 
 import torch
 
-from eigen_zkvm_tpu.stark.polsarray import PolsArray
-from eigen_zkvm_tpu.stark.serializer import stark_proof_to_json
-from eigen_zkvm_tpu.stark.stark_verify import stark_verify
-from eigen_zkvm_tpu.stark.types import load_pil, load_starkstruct
-
 from ..utils.profiler import Prof
 from .engine import Engine
+from .polsarray import PolsArray
+from .serializer import stark_proof_to_json
 from .stark_gen import stark_gen
 from .stark_setup import StarkSetup
+from .stark_verify import stark_verify
+from .types import load_pil, load_starkstruct
 
 
 def stark_prove(stark_struct_file: str, pil_file: str, const_file: str,

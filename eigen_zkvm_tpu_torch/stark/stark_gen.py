@@ -1,145 +1,133 @@
-"""eSTARK prover on the port's engine.
+"""eSTARK prover, device-resident on the port's engine.
 
-Port of eigen_zkvm_tpu/stark/stark_gen.py::stark_gen with the same stage
-order and Fiat-Shamir schedule.  Where the JAX prover calls its device
-commit backend (`_tpu_commit`), this one calls ops/commit.py on
-`engine.device`: the four stage commits and, through stark/fri.py, the FRI
-fold-tree commits.  The const tree comes from stark/stark_setup.py.  The
-constraint VM (native vm_host.cpp or the numpy VM), the plookup and
-grand-product columns, the Q split, the openings, xDivXSubXi and the FRI
-folds run on the JAX package's host code, which the proof shares with
-eigen_zkvm_tpu's host engine byte for byte.
+Port of eigen_zkvm_tpu/stark/stark_gen.py::stark_gen in its resident
+configuration (commit, VM and FRI on the device), with the same stage order
+and Fiat-Shamir schedule:
+
+  stage1  commit trace            -> LDE + Merkle (ops/commit.py)
+  stage2  plookup H1/H2           -> device segment + host stable sort
+  stage3  grand-product Z         -> log-depth F3 prefix product
+  stage4  Q = C / Z_H on coset    -> device segment + Q split (iNTT/NTT)
+  evals   openings at xi, w*xi    -> Lagrange iNTT + limb sums (ops/vm.py)
+  FRI     deep quotient + folds   -> group iNTT + Horner, fold trees
+
+Every section lives on `engine.device` from the start; the host sees the
+roots, the openings, the query rows and the n-domain columns of a plookup.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from eigen_zkvm_tpu.fields import f3g
-from eigen_zkvm_tpu.fields import gl64 as gl
-from eigen_zkvm_tpu.hash.merkle_gl import MerkleTreeGL, ZeroMerkleTreeGL
-from eigen_zkvm_tpu.poly import ntt
-from eigen_zkvm_tpu.stark.backends import get_backend
-from eigen_zkvm_tpu.stark.stark_gen import (StarkProof, _calculate_exp_at_point,
-                                            _exec_segment, _geometric,
-                                            calculate_h1h2, calculate_z,
-                                            get_pol, set_pol)
-from eigen_zkvm_tpu.stark.vm import ProverContext
-from eigen_zkvm_tpu.utils import structlog
-
-from ..ops import commit
+from ..hash.transcript import TranscriptGL
+from ..ops import commit, f3, gl, vm
+from ..utils import structlog
 from ..utils.profiler import Prof
 from .engine import Engine
-from .fri import FRI
+from .fri import FRI, FRIProof
 
 
-def _commit_device(ctx, merkle_cls, width: int):
-    if merkle_cls is MerkleTreeGL and width:
-        return ctx.engine.device
-    return None
+class StarkProof:
+    def __init__(self):
+        self.root1 = self.root2 = self.root3 = self.root4 = None
+        self.rootC = None
+        self.fri_proof: FRIProof | None = None
+        self.evals = None      # [n_ev, 3]
+        self.publics = None    # [n_pub, 3]
+        self.public_dims = []  # per-public value dim (1 or 3) for transcript
+        self.prover_addr = ""
 
 
-def _extend_and_merkelize(ctx, section: str, merkle_cls):
-    """LDE a *_n section into its *_2ns twin and Merkle-commit it."""
-    n_pols = ctx.sections[section].shape[1]
-    ext_name = section.replace("_n", "_2ns")
-    if n_pols == 0 and merkle_cls is MerkleTreeGL \
-            and ctx.Next & (ctx.Next - 1) == 0:
-        return ZeroMerkleTreeGL.build(ctx.Next)
-    device = _commit_device(ctx, merkle_cls, n_pols)
-    if device is not None:
-        tree = commit.extend_and_merkelize(ctx.sections[section], ctx.nbits,
-                                           ctx.nbits_ext, device)
-        ctx.sections[ext_name][:, :] = tree.elements  # the host VM reads it
-        return tree
-    lde = ntt.interpolate(ctx.sections[section], ctx.nbits, ctx.nbits_ext) \
-        if n_pols else np.zeros((ctx.Next, 0), dtype=np.uint64)
-    ctx.sections[ext_name][:, :] = lde
-    return merkle_cls().merkelize(lde, n_pols, ctx.Next)
+def _pol_ref(ctx, pol_id: int):
+    p = ctx.starkinfo.var_pol_map[pol_id]
+    return ctx.sections[p.section], p.section_pos, p.dim
 
 
-def _merkelize(ctx, section: str, merkle_cls):
-    buf = ctx.sections[section]
-    device = _commit_device(ctx, merkle_cls, buf.shape[1])
-    if device is not None:
-        return commit.merkelize(buf, device)
-    return merkle_cls().merkelize(buf, buf.shape[1], buf.shape[0])
+def get_pol(ctx, pol_id: int) -> torch.Tensor:
+    """A polynomial as extension values [deg, 3] on the device."""
+    buf, off, dim = _pol_ref(ctx, pol_id)
+    out = torch.zeros((buf.shape[0], 3), dtype=torch.int64, device=buf.device)
+    out[:, :dim] = buf[:, off : off + dim]
+    return out
 
 
-def _evals(ctx, starkinfo, xis, wxis, extend_bits: int):
-    """Openings at xi and w*xi via Lagrange iNTT (host)."""
-    from eigen_zkvm_tpu import native  # builds the host kernels on first use
-
-    N = ctx.N
-    LEv = ntt.intt(_geometric(xis, N))
-    LpEv = ntt.intt(_geometric(wxis, N))
-    nv = native.gl_vec if hasattr(native.gl_vec, "f3_dot") else None
-    evals = np.zeros((len(starkinfo.ev_map), 3), dtype=np.uint64)
-    for i, ev in enumerate(starkinfo.ev_map):
-        if ev.type_ == "const":
-            buf = ctx.sections["const_2ns"]
-            off, dim = ev.id, 1
-        elif ev.type_ == "cm":
-            p = starkinfo.var_pol_map[starkinfo.cm_2ns[ev.id]]
-            buf = ctx.sections[p.section]
-            off, dim = p.section_pos, p.dim
-        else:
-            raise ValueError(f"Invalid ev type: {ev.type_}")
-        l = LpEv if ev.prime else LEv
-        r = nv.f3_dot(l, buf, 1 << extend_bits, off, dim) \
-            if nv is not None else None
-        if r is not None:
-            evals[i] = r
-            continue
-        v = buf[:: 1 << extend_bits, off : off + dim]  # stride 2^eb
-        prod = gl.mul(l, v) if dim == 1 else f3g.mul(v, l)
-        evals[i] = gl.sum_mod(prod, axis=0)
-    return evals
+def set_pol(ctx, pol_id: int, pol: torch.Tensor):
+    buf, off, dim = _pol_ref(ctx, pol_id)
+    buf[:, off : off + dim] = pol[:, :dim]
 
 
-def _x_div(x_buff, xi):
-    """x / (x - xi) over the extended coset (host)."""
-    from eigen_zkvm_tpu import native
+def calculate_h1h2(f: np.ndarray, t: np.ndarray):
+    """Plookup halves (starky stark_gen.rs calculate_H1H2) on the host:
+    each f row takes the index of its row in t (the last one, where t
+    repeats a row), t and f merge by that key with a stable sort, and the
+    merged rows split even/odd."""
+    idx_t = {}
+    for i, row in enumerate(t):
+        idx_t[tuple(int(x) for x in row)] = i
+    n_t, n_f = t.shape[0], f.shape[0]
+    keys = np.empty(n_t + n_f, dtype=np.int64)
+    keys[:n_t] = np.arange(n_t)
+    for i, row in enumerate(f):
+        k = tuple(int(x) for x in row)
+        if k not in idx_t:
+            raise ValueError(f"Number not included: {k}")
+        keys[n_t + i] = idx_t[k]
+    order = np.argsort(keys, kind="stable")
+    s = np.concatenate([t, f], axis=0)[order]
+    return s[0::2], s[1::2]
 
-    if native.gl_vec is not None and hasattr(native.gl_vec, "f3_xdiv"):
-        return native.gl_vec.f3_xdiv(x_buff, xi)
-    den = f3g.sub(f3g.from_base(x_buff),
-                  np.broadcast_to(xi[None, :], (x_buff.shape[0], 3)))
-    return f3g.mul_base(f3g.inv(den), x_buff)
+
+def calculate_z(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """Z[0] = 1, Z[i] = prod_{k<i} num[k] / den[k] ([N, 3] on the device);
+    the full product must be 1."""
+    acc = f3.prefix_product(f3.mul(num, f3.inv(den)))
+    if gl.to_u64(acc[-1]).tolist() != [1, 0, 0]:
+        raise ValueError("calculate_z: the grand product is not 1")
+    one = f3.from_ints(f3.ONE_INT, num.device)[None, :]
+    return torch.cat([one, acc[:-1]])
+
+
+def _extend_and_merkelize(ctx, section: str):
+    """LDE a *_n section into its *_2ns twin and Merkle-commit it; the
+    twin is the tree's device tensor."""
+    tree = commit.extend_and_merkelize(ctx.sections[section], ctx.nbits,
+                                       ctx.nbits_ext)
+    ctx.sections[section.replace("_n", "_2ns")] = _committed(ctx, tree)
+    return tree
+
+
+def _committed(ctx, tree) -> torch.Tensor:
+    """The [Next, width] values a tree commits to, on the engine's device."""
+    if tree.width == 0:
+        return torch.zeros((ctx.Next, 0), dtype=torch.int64,
+                           device=ctx.device)
+    return tree.device_elements.to(ctx.device)
 
 
 def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
               stark_struct, engine: Engine | None = None,
               prover_addr: str = "", prof: Prof | None = None) -> StarkProof:
+    if stark_struct.verificationHashType != "GL":
+        raise NotImplementedError(
+            f"verificationHashType {stark_struct.verificationHashType}")
     engine = engine or Engine()
-    merkle_cls, transcript_cls = get_backend(stark_struct.verificationHashType)
-    prof = prof or Prof("stark_gen", engine.device)
-    ctx = ProverContext(starkinfo, stark_struct)
+    dev = engine.device
+    prof = prof or Prof("stark_gen", dev)
+    ctx = vm.ProverContext(starkinfo, stark_struct, dev)
     ctx.engine = engine
     structlog.log_event("stark_gen.start", nbits=stark_struct.nBits,
                         nbits_ext=stark_struct.nBitsExt,
                         hash=stark_struct.verificationHashType,
                         engine=repr(engine))
-    N, Next = ctx.N, ctx.Next
-    extend_bits = ctx.nbits_ext - ctx.nbits
+    nbits = ctx.nbits
     n_cm = starkinfo.n_cm1
 
-    # trace + preprocessed columns (a device const tree downloads lazily)
-    ctx.sections["cm1_n"][:, :] = cm_pols.write_buff()
-    ctx.sections["const_n"][:, :] = const_pols.write_buff()
-    ctx.sections["const_2ns"][:, :] = const_tree.to_extend()
-
-    # domains
-    w_n = np.uint64(gl.root_of_unity(ctx.nbits))
-    w_ext = np.uint64(gl.root_of_unity(ctx.nbits_ext))
-    shift = np.uint64(gl.SHIFT)
-    ctx.x_n = gl.exp_vec(w_n, np.arange(N, dtype=np.uint64))
-    ctx.x_2ns = gl.mul(shift, gl.exp_vec(w_ext, np.arange(Next, dtype=np.uint64)))
-    # Z_H^-1 on the extended coset: 1/(shift^N * w_eb^i - 1), period 2^eb
-    sn = gl.exp(shift, N)
-    w_eb = np.uint64(gl.root_of_unity(extend_bits))
-    zh = gl.sub(gl.mul(sn, gl.exp_vec(
-        w_eb, np.arange(1 << extend_bits, dtype=np.uint64))), np.uint64(1))
-    ctx.zhinv_2ns = np.tile(gl.inv(zh), Next >> extend_bits)
+    # trace + preprocessed columns
+    cm_host = cm_pols.write_buff()
+    ctx.sections["cm1_n"].copy_(gl.from_u64(cm_host))
+    ctx.sections["const_n"].copy_(gl.from_u64(const_pols.write_buff()))
+    ctx.sections["const_2ns"] = _committed(ctx, const_tree)
+    vm.seed_domains(ctx)
 
     # publics
     n_pub = len(starkinfo.publics)
@@ -147,94 +135,93 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
     public_dims = []
     for i, pe in enumerate(starkinfo.publics):
         if pe.polType == "cmP":
-            ctx.publics[i, 0] = ctx.sections["cm1_n"][pe.idx, pe.polId]
+            ctx.publics[i, 0] = cm_host[pe.idx, pe.polId]
             public_dims.append(1)
         elif pe.polType == "imP":
-            val, dim = _calculate_exp_at_point(ctx, program.publics_code[i],
-                                               pe.idx)
+            val, dim = vm.exp_at_point(ctx, program.publics_code[i], pe.idx)
             ctx.publics[i, :dim] = val[:dim]
             public_dims.append(dim)
         else:
             raise ValueError(f"Invalid public type {pe.polType}")
 
-    transcript = transcript_cls()
+    transcript = TranscriptGL()
     for i in range(n_pub):
         transcript.put_elements([int(x) for x in ctx.publics[i, : public_dims[i]]])
 
     # ---- stage 1
-    tree1 = _extend_and_merkelize(ctx, "cm1_n", merkle_cls)
+    tree1 = _extend_and_merkelize(ctx, "cm1_n")
     transcript.put_root(tree1.root())
     ctx.challenges[0] = transcript.get_field()  # u
     ctx.challenges[1] = transcript.get_field()  # defVal
 
-    _exec_segment(ctx, program.step2prev, "n")
+    vm.execute_segment(ctx, program.step2prev, "n")
     for pu in starkinfo.pu_ctx:
-        f_pol = get_pol(ctx, starkinfo.exp2pol[pu.f_exp_id])
-        t_pol = get_pol(ctx, starkinfo.exp2pol[pu.t_exp_id])
-        h1, h2 = calculate_h1h2(f_pol, t_pol)
-        set_pol(ctx, starkinfo.cm_n[n_cm], h1)
-        n_cm += 1
-        set_pol(ctx, starkinfo.cm_n[n_cm], h2)
-        n_cm += 1
+        f_pol = gl.to_u64(get_pol(ctx, starkinfo.exp2pol[pu.f_exp_id]))
+        t_pol = gl.to_u64(get_pol(ctx, starkinfo.exp2pol[pu.t_exp_id]))
+        for h in calculate_h1h2(f_pol, t_pol):
+            set_pol(ctx, starkinfo.cm_n[n_cm], gl.from_u64(h, dev))
+            n_cm += 1
     prof.tick("stage1 trace commit")
 
     # ---- stage 2
-    tree2 = _extend_and_merkelize(ctx, "cm2_n", merkle_cls)
+    tree2 = _extend_and_merkelize(ctx, "cm2_n")
     transcript.put_root(tree2.root())
     ctx.challenges[2] = transcript.get_field()  # gamma
     ctx.challenges[3] = transcript.get_field()  # beta
 
-    _exec_segment(ctx, program.step3prev, "n")
+    vm.execute_segment(ctx, program.step3prev, "n")
     for o in list(starkinfo.pu_ctx) + list(starkinfo.pe_ctx) + list(starkinfo.ci_ctx):
         p_num = get_pol(ctx, starkinfo.exp2pol[o.num_id])
         p_den = get_pol(ctx, starkinfo.exp2pol[o.den_id])
         set_pol(ctx, starkinfo.cm_n[n_cm], calculate_z(p_num, p_den))
         n_cm += 1
-    _exec_segment(ctx, program.step3, "n")
+    vm.execute_segment(ctx, program.step3, "n")
     prof.tick("stage2 h1/h2 commit")
 
     # ---- stage 3
-    tree3 = _extend_and_merkelize(ctx, "cm3_n", merkle_cls)
+    tree3 = _extend_and_merkelize(ctx, "cm3_n")
     transcript.put_root(tree3.root())
     ctx.challenges[4] = transcript.get_field()  # vc
     prof.tick("stage3a cm3 commit")
 
-    _exec_segment(ctx, program.step42ns, "2ns")
+    vm.execute_segment(ctx, program.step42ns, "2ns")
     prof.tick("stage3b step42ns")
 
-    # Q split: monomial blocks of size N, coset-unscale, recombine (host)
+    # Q split: monomial blocks of size N, coset-unscaled, on the ext domain
     q_dim, q_deg = starkinfo.q_dim, starkinfo.q_deg
     if q_deg > 0:
-        qq1 = ntt.intt(ctx.sections["q_2ns"])  # [Next, q_dim] coefficients
-        qq2 = np.zeros((Next, q_dim * q_deg), dtype=np.uint64)
-        shift_inv_n = gl.exp(gl.inv(shift), N)
-        cur_s = np.uint64(1)
-        for p in range(q_deg):
-            qq2[:N, q_dim * p : q_dim * (p + 1)] = gl.mul(
-                qq1[p * N : (p + 1) * N], cur_s)
-            cur_s = gl.mul(cur_s, shift_inv_n)
-        ctx.sections["cm4_2ns"][:, :] = ntt.ntt(qq2)
+        ctx.sections["cm4_2ns"] = commit.q_split(
+            ctx.sections["q_2ns"], q_dim, q_deg, nbits, ctx.nbits_ext)
+    else:
+        ctx.sections["cm4_2ns"] = torch.zeros(
+            (ctx.Next, starkinfo.map_sectionsN.cm4_n), dtype=torch.int64,
+            device=dev)
     prof.tick("stage3 z commit")
 
     # ---- stage 4
-    tree4 = _merkelize(ctx, "cm4_2ns", merkle_cls)
+    tree4 = commit.merkelize(ctx.sections["cm4_2ns"])
     transcript.put_root(tree4.root())
     ctx.challenges[7] = transcript.get_field()  # xi
 
-    xi = ctx.challenges[7]
-    shift_inv = gl.inv(shift)
-    xis = f3g.mul_base(xi, shift_inv)
-    wxis = f3g.mul_base(f3g.mul_base(xi, w_n), shift_inv)
-    evals = _evals(ctx, starkinfo, xis, wxis, extend_bits)
+    # openings at xi and w*xi via the Lagrange iNTT
+    xi = tuple(int(x) for x in ctx.challenges[7])
+    w_n = gl.root_of_unity(nbits)
+    shift_inv = gl.inv_int(gl.SHIFT)
+    xis = f3.mul_base_int(xi, shift_inv)
+    wxi = f3.mul_base_int(xi, w_n)
+    wxis = f3.mul_base_int(wxi, shift_inv)
+    if len(starkinfo.ev_map):
+        evals = vm.compute_evals(ctx, *vm.compute_levs(ctx, xis, wxis))
+    else:
+        evals = np.zeros((0, 3), dtype=np.uint64)
     ctx.evals = evals
     for i in range(evals.shape[0]):
         transcript.put_elements([int(x) for x in evals[i]])
     ctx.challenges[5] = transcript.get_field()  # v1
     ctx.challenges[6] = transcript.get_field()  # v2
 
-    ctx.x_div_x_sub_xi = _x_div(ctx.x_2ns, xi)
-    ctx.x_div_x_sub_wxi = _x_div(ctx.x_2ns, f3g.mul_base(xi, w_n))
-    _exec_segment(ctx, program.step52ns, "2ns")
+    ctx.x_div_x_sub_xi, ctx.x_div_x_sub_wxi = vm.compute_xdiv(ctx, xi, wxi)
+    vm.execute_segment(ctx, program.step52ns, "2ns")
     prof.tick("stage4 quotient + openings")
 
     trees = [tree1, tree2, tree3, tree4, const_tree]
@@ -248,9 +235,8 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
             if hasattr(t, "prefetch"):
                 t.prefetch(idxs)
 
-    fri = FRI(stark_struct, merkle_cls, engine=engine)
-    fri_proof = fri.prove(transcript, ctx.sections["f_2ns"].copy(), query_pol,
-                          prefetch=prefetch)
+    fri_proof = FRI(stark_struct).prove(transcript, ctx.sections["f_2ns"],
+                                        query_pol, prefetch=prefetch)
     prof.tick("fri")
     prof.done()
 

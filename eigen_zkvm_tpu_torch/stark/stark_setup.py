@@ -1,43 +1,46 @@
 """STARK preprocessing on the port: const-pol LDE + Merkle tree + compile.
 
-Port of eigen_zkvm_tpu/stark/stark_setup.py.  With a device engine the GL
-const tree is built by ops/commit.py on that device; the starkinfo compiler
-and `save`/`load` are the JAX package's own.
+Port of eigen_zkvm_tpu/stark/stark_setup.py (starky stark_setup.rs: the
+const root is the verification key), GL hash only.  The const tree is built
+by ops/commit.py on the engine's device and stays there; the starkinfo
+compiler is the port's copy (stark/starkinfo.py).
 """
 from __future__ import annotations
 
 import copy
+import pickle
 
-import numpy as np
-
-from eigen_zkvm_tpu.poly import ntt
-from eigen_zkvm_tpu.stark import stark_setup as host_setup
-from eigen_zkvm_tpu.stark.backends import get_backend
-from eigen_zkvm_tpu.stark.starkinfo import StarkInfo
-
-from ..ops import commit
+from ..ops import commit, gl
 from .engine import Engine
+from .starkinfo import Program, StarkInfo
 
 
-class StarkSetup(host_setup.StarkSetup):
+class StarkSetup:
     def __init__(self, const_pols, pil, stark_struct,
                  engine: Engine | None = None, global_l1=None):
         if const_pols.nPols != pil.nConstants:
             raise ValueError("const pols do not match the PIL")
+        if stark_struct.verificationHashType != "GL":
+            raise NotImplementedError(
+                f"verificationHashType {stark_struct.verificationHashType}")
         engine = engine or Engine()
-        nbits, nbits_ext = stark_struct.nBits, stark_struct.nBitsExt
-        if (engine.device is not None and pil.nConstants
-                and stark_struct.verificationHashType == "GL"):
-            self.const_tree = commit.extend_and_merkelize(
-                const_pols.buffer, nbits, nbits_ext, engine.device)
-        else:
-            merkle_cls, _ = get_backend(stark_struct.verificationHashType)
-            lde = ntt.interpolate(const_pols.buffer, nbits, nbits_ext) \
-                if pil.nConstants \
-                else np.zeros((1 << nbits_ext, 0), dtype=np.uint64)
-            self.const_tree = merkle_cls().merkelize(
-                lde, const_pols.nPols, 1 << nbits_ext)
+        self.const_tree = commit.extend_and_merkelize(
+            gl.from_u64(const_pols.buffer, engine.device), stark_struct.nBits,
+            stark_struct.nBitsExt)
         self.const_root = self.const_tree.root()
         # the compiler mutates the PIL; keep the caller's reusable
         self.starkinfo = StarkInfo(copy.deepcopy(pil), stark_struct, global_l1)
-        self.program = self.starkinfo.program
+        self.program: Program = self.starkinfo.program
+
+    # checkpoint / resume: the setup is a reusable artifact
+    def save(self, path: str):
+        with open(path, "wb") as f:
+            pickle.dump(self, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+    @staticmethod
+    def load(path: str) -> "StarkSetup":
+        with open(path, "rb") as f:
+            obj = pickle.load(f)
+        if not isinstance(obj, StarkSetup):
+            raise TypeError(f"{path} holds no StarkSetup")
+        return obj

@@ -14,7 +14,7 @@ import time
 
 import torch
 
-from eigen_zkvm_tpu.utils import structlog
+from . import structlog
 
 
 def enabled() -> bool:

@@ -20,6 +20,7 @@ from eigen_zkvm_tpu.stark.serializer import stark_proof_to_json
 from eigen_zkvm_tpu.stark.stark_verify import stark_verify
 from eigen_zkvm_tpu.stark.types import StarkStruct, Step
 from eigen_zkvm_tpu_torch import convert
+from eigen_zkvm_tpu_torch.hash.merkle import ZeroMerkleTreeGL
 from eigen_zkvm_tpu_torch.ops import commit, gl
 from eigen_zkvm_tpu_torch.stark.engine import Engine
 from eigen_zkvm_tpu_torch.stark.stark_gen import stark_gen
@@ -47,7 +48,7 @@ def _proofs_match(tree, host, height):
 @pytest.mark.parametrize("height,width", [(1, 3), (13, 5), (256, 8)])
 def test_tree_matches_host(height, width):
     buf = _rand(height, height, width)
-    tree = commit.merkelize(buf, CPU)
+    tree = commit.merkelize(gl.from_u64(buf))
     host = MerkleTreeGL().merkelize(buf, width, height)
     assert np.array_equal(tree.root(), host.root())
     _proofs_match(tree, host, height)
@@ -61,7 +62,7 @@ def test_tree_root_matches_jax_device_tree():
     lo, hi = ct._split(buf)
     flat = ct._levels_only(jnp.asarray(lo), jnp.asarray(hi), width, height)
     _, offsets = ct._level_meta(height)
-    assert np.array_equal(commit.merkelize(buf, CPU).root(),
+    assert np.array_equal(commit.merkelize(gl.from_u64(buf)).root(),
                           ct._join(flat[0][offsets[-1]],
                                    flat[1][offsets[-1]]))
 
@@ -69,23 +70,29 @@ def test_tree_root_matches_jax_device_tree():
 def test_extend_and_merkelize_matches_host_lde_and_tree():
     nbits, width = 6, 4
     buf = _rand(1, 1 << nbits, width)
-    tree = commit.extend_and_merkelize(buf, nbits, nbits + 1, CPU)
+    tree = commit.extend_and_merkelize(gl.from_u64(buf), nbits, nbits + 1)
     lde = ntt_np.interpolate(buf, nbits, nbits + 1)
     host = MerkleTreeGL().merkelize(lde, width, 1 << (nbits + 1))
     assert np.array_equal(tree.elements, lde)     # lazily fetched
     assert np.array_equal(tree.to_extend(), lde)
     assert np.array_equal(tree.root(), host.root())
     _proofs_match(tree, host, 1 << (nbits + 1))
-    # a width-0 section commits on the host, as in the JAX package
-    empty = commit.extend_and_merkelize(np.zeros((1 << nbits, 0), np.uint64),
-                                        nbits, nbits + 1, CPU)
-    assert type(empty) is MerkleTreeGL
+    # a width-0 section commits the zero tree (one digest per level), whose
+    # root and proofs are the host tree's over a [height, 0] matrix
+    empty = commit.extend_and_merkelize(
+        gl.from_u64(np.zeros((1 << nbits, 0), np.uint64)), nbits, nbits + 1)
+    height = 1 << (nbits + 1)
+    host_empty = MerkleTreeGL().merkelize(np.zeros((height, 0), np.uint64),
+                                          0, height)
+    assert isinstance(empty, ZeroMerkleTreeGL)
+    assert np.array_equal(empty.root(), host_empty.root())
+    _proofs_match(empty, host_empty, height)
 
 
 def test_prefetch_batches_queries_and_pickle_roundtrip():
     nbits = 5
-    tree = commit.extend_and_merkelize(_rand(2, 1 << nbits, 3), nbits,
-                                       nbits + 1, CPU)
+    tree = commit.extend_and_merkelize(gl.from_u64(_rand(2, 1 << nbits, 3)),
+                                       nbits, nbits + 1)
     tree.prefetch([3, 17, 3, 60])
     assert sorted(tree._pref) == [3, 17, 60]
     back = pickle.loads(pickle.dumps(tree))

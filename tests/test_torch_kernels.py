@@ -88,7 +88,7 @@ def test_poseidon_hash_n_strided_input_and_capacity(cuda):
     _equal(poseidon.hash_n(inp), poseidon.hash_n_plain(inp))
 
 
-@pytest.mark.parametrize("w", [0, 3, 4, 8, 9, 12, 20, 37])
+@pytest.mark.parametrize("w", [0, 3, 4, 8, 9, 12, 20, 37, 96])
 def test_hash_leaves_kernel_matches_host(cuda, w):
     rng = np.random.default_rng(w)
     rows = _rand(rng, 257, w)
@@ -101,7 +101,7 @@ def test_hash_leaves_kernel_matches_host(cuda, w):
 def test_device_tree_matches_host(cuda, height, width):
     rng = np.random.default_rng(height)
     buf = _rand(rng, height, width)
-    tree = commit.merkelize(buf, cuda)
+    tree = commit.merkelize(gl.from_u64(buf, cuda))
     host = MerkleTreeGL().merkelize(buf, width, height)
     assert np.array_equal(tree.root(), host.root())
     for idx in sorted({0, 1 % height, height // 2, height - 1}):

@@ -87,6 +87,15 @@ def test_hash_leaves_linearhash_chunking(w):
         rows, batch_size=max(8, -(-w // 4))))
 
 
+def test_hash_leaves_plain_at_the_fold_tree_width():
+    """hash_leaves_plain, the reference chip_smoke.py holds the kernel to,
+    at a fold tree's 96-wide leaves: four 24-wide chunks, each sponge call
+    after the first taking the previous digest as its capacity."""
+    rows = _rand(96, 16, 96)
+    got = gl.to_u64(poseidon.hash_leaves_plain(gl.from_u64(rows), 96))
+    assert np.array_equal(got, linearhash_gl.hash_leaves(rows))
+
+
 @pytest.mark.parametrize("height,width", [(1, 5), (13, 3), (64, 8),
                                           (100, 12)])
 def test_merkle_root_matches_host_tree(height, width):

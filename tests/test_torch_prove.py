@@ -1,21 +1,29 @@
 """The port's whole slice on the CPU: StarkSetup + stark_gen with
-Engine(device=cpu), which runs the device-commit code on CPU tensors with
-the kernels' plain versions.  Each proof's JSON must be byte-identical to
-the JAX package's host prove of the same inputs, and stark_verify must
-accept it.  Fixtures are built in-repo (examples/, scripts/bench_big.py).
+Engine("cpu"), which runs the resident prover (commits, VM, Q split,
+openings, FRI folds) on CPU tensors with the kernels' plain versions.  Each
+proof's JSON must be byte-identical to the JAX package's host prove of the
+same inputs (and to its resident engine on JAX's CPU backend), and the
+port's own stark_verify must accept it.  Fixtures are built in-repo
+(examples/, scripts/bench_big.py).  The port must import nothing of the
+JAX package, and run on the CPU only when asked.
 
-The last test proves chip_smoke.py's chain AIR on the card with both
-engines; it imports no JAX, so it runs where JAX is not installed:
+The last test proves chip_smoke.py's chain AIR on the card with the port
+and with eigen_zkvm_tpu's host engine; it imports no JAX, so it runs where
+JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_prove.py
 """
+import ast
+import glob
 import hashlib
 import importlib.util
+import json
 import os
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -28,13 +36,15 @@ from eigen_zkvm_tpu.stark import prove as host_prove
 from eigen_zkvm_tpu.stark import stark_gen as host_gen
 from eigen_zkvm_tpu.stark import stark_setup as host_setup
 from eigen_zkvm_tpu.stark.serializer import stark_proof_to_json
-from eigen_zkvm_tpu.stark.stark_verify import stark_verify
+from eigen_zkvm_tpu.stark.stark_verify import stark_verify as host_verify
 from eigen_zkvm_tpu.stark.types import StarkStruct, Step
 from eigen_zkvm_tpu_torch import bench_chain, kernels
 from eigen_zkvm_tpu_torch.stark import prove as port_prove
+from eigen_zkvm_tpu_torch.stark import serializer as port_serializer
 from eigen_zkvm_tpu_torch.stark.engine import Engine
 from eigen_zkvm_tpu_torch.stark.stark_gen import stark_gen
 from eigen_zkvm_tpu_torch.stark.stark_setup import StarkSetup
+from eigen_zkvm_tpu_torch.stark.stark_verify import stark_verify
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,14 +62,18 @@ def _host_json(pil, cp, cm, ss):
         cm, cp, setup.const_tree, setup.starkinfo, setup.program, ss))
 
 
-def _port_proof(pil, cp, cm, ss):
+def _port_setup_and_proof(pil, cp, cm, ss):
     engine = Engine("cpu")
     setup = StarkSetup(cp, pil, ss, engine)
     proof = stark_gen(cm, cp, setup.const_tree, setup.starkinfo,
                       setup.program, ss, engine=engine)
     assert stark_verify(proof, setup.const_root, setup.starkinfo, ss,
                         setup.program)
-    return proof
+    return setup, proof
+
+
+def _port_proof(pil, cp, cm, ss):
+    return _port_setup_and_proof(pil, cp, cm, ss)[1]
 
 
 def _case(name):
@@ -90,12 +104,14 @@ def test_port_proof_is_byte_identical_to_host_engine(monkeypatch, name):
     assert stark_proof_to_json(proof) == _host_json(pil, cp, cm, ss)
 
 
-def test_port_proof_matches_jax_device_commit_on_cpu(monkeypatch):
-    """The JAX package's own device-commit configuration (commit on the
-    accelerator engine, VM on the host), run on its CPU backend."""
+@pytest.mark.parametrize("jax_vm", ["0", "1"])
+def test_port_proof_matches_jax_device_commit_on_cpu(monkeypatch, jax_vm):
+    """The JAX package's own device configurations, run on its CPU backend:
+    device commits with the host VM, and the resident engine (commit, VM
+    and FRI chain on the device engine), which the port follows."""
     monkeypatch.setenv("EIGEN_ZKVM_ENGINE", "host")
     monkeypatch.setenv("EIGEN_ZKVM_TPU_COMMIT", "1")
-    monkeypatch.setenv("EIGEN_ZKVM_TPU_VM", "0")
+    monkeypatch.setenv("EIGEN_ZKVM_TPU_VM", jax_vm)
     pil, cp, mk = fibonacci.build(4)
     cm = mk()
     ss = _ss(4, 3, [5])
@@ -128,37 +144,112 @@ def test_file_based_stark_prove_matches_host(monkeypatch, tmp_path):
 
 
 def test_proving_with_the_port_never_imports_jax():
+    """A prove and verify through the port's own modules alone (its chain
+    AIR, setup, prover, verifier, serializer) loads neither JAX nor any
+    module of the JAX package."""
     code = textwrap.dedent("""
         import sys
-        from eigen_zkvm_tpu.examples import fibonacci
-        from eigen_zkvm_tpu.stark.stark_verify import stark_verify
-        from eigen_zkvm_tpu.stark.types import StarkStruct, Step
+        from eigen_zkvm_tpu_torch import bench_chain
         from eigen_zkvm_tpu_torch.stark.engine import Engine
+        from eigen_zkvm_tpu_torch.stark.serializer import stark_proof_to_json
         from eigen_zkvm_tpu_torch.stark.stark_gen import stark_gen
         from eigen_zkvm_tpu_torch.stark.stark_setup import StarkSetup
-        ss = StarkStruct(nBits=4, nBitsExt=5, nQueries=2,
-                         verificationHashType="GL", steps=[Step(5), Step(2)])
-        pil, cp, mk = fibonacci.build(4)
-        cm = mk()
+        from eigen_zkvm_tpu_torch.stark.stark_verify import stark_verify
+        pil, cp, cm = bench_chain.build_chain_air(4, 2)
+        ss = bench_chain.chain_struct(4, 2)
         e = Engine("cpu")
         s = StarkSetup(cp, pil, ss, e)
         p = stark_gen(cm, cp, s.const_tree, s.starkinfo, s.program, ss,
                       engine=e)
         assert stark_verify(p, s.const_root, s.starkinfo, ss, s.program)
-        assert "jax" not in sys.modules, "jax was imported"
-        print("JAX-FREE")
+        stark_proof_to_json(p)
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
+        assert not bad, bad
+        print("SELF-CONTAINED")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=ROOT, env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert "JAX-FREE" in r.stdout
+    assert "SELF-CONTAINED" in r.stdout
+
+
+def _imports(path):
+    """Module names a source file imports (absolute, as written)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    files = glob.glob(os.path.join(ROOT, "eigen_zkvm_tpu_torch", "**",
+                                   "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
+    assert not bad, bad
 
 
 def test_engine_names_its_device():
-    assert repr(Engine()) == "Engine(commit=host, vm=host, resident=False)"
-    assert repr(Engine("cpu")) == "Engine(commit=cpu, vm=host, resident=False)"
+    assert repr(Engine("cpu")) == "Engine(device=cpu, resident=True)"
+    assert Engine(torch.device("cpu")).device == torch.device("cpu")
+
+
+def test_engine_without_cuda_raises(monkeypatch, tmp_path):
+    """No CUDA device: the default engine raises; only "cpu" runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_prove.stark_prove("ss.json", "pil.json", "c", "m")
+    assert Engine("cpu").device.type == "cpu"
+
+
+def test_port_verifier_accepts_and_rejects_tampering():
+    pil, cp, mk = plookup.build(5)
+    ss = _ss(5)
+    setup, proof = _port_setup_and_proof(pil, cp, mk(), ss)
+    args = (setup.const_root, setup.starkinfo, ss, setup.program)
+    text = port_serializer.stark_proof_to_json(proof)
+    assert stark_verify(port_serializer.stark_proof_from_json(text), *args)
+    d = json.loads(text)
+    d["evals"][0][1] = str((int(d["evals"][0][1]) + 1) % 0xFFFFFFFF00000001)
+    assert not stark_verify(port_serializer.stark_proof_from_dict(d), *args)
+    d = json.loads(text)
+    d["s0_vals1"][1][0] = str(int(d["s0_vals1"][1][0]) ^ 1)
+    assert not stark_verify(port_serializer.stark_proof_from_dict(d), *args)
+    d = json.loads(text)
+    d["finalPol"][0][0] = str(int(d["finalPol"][0][0]) ^ 1)
+    assert not stark_verify(port_serializer.stark_proof_from_dict(d), *args)
+    # and the JAX package's verifier agrees with the untouched proof
+    hsetup = host_setup.StarkSetup(cp, pil, ss)
+    from eigen_zkvm_tpu.stark.serializer import stark_proof_from_json
+    assert host_verify(stark_proof_from_json(text), hsetup.const_root,
+                       hsetup.starkinfo, ss, hsetup.program)
+
+
+def test_chain_air_files_equal_bench_big(tmp_path):
+    spec = importlib.util.spec_from_file_location(
+        "bench_big", os.path.join(ROOT, "scripts", "bench_big.py"))
+    bench_big = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_big)
+    pil, cp, cm = bench_big.build_chain_air(6, 3)
+    ppil, pcp, pcm = bench_chain.build_chain_air(6, 3)
+    assert bench_chain.pil_to_json(ppil) == _pil_to_json(pil)
+    assert np.array_equal(pcp.buffer, cp.buffer)
+    assert np.array_equal(pcm.buffer, cm.buffer)
+    files = bench_chain.write_chain_files(str(tmp_path), 6, 3, 4)
+    with open(files["pil"]) as f:
+        assert json.load(f) == _pil_to_json(pil)
+    assert np.array_equal(np.fromfile(files["cm"], dtype="<u8"),
+                          cm.buffer.reshape(-1))
 
 
 def _smoke():
@@ -173,8 +264,8 @@ def _smoke():
 def test_port_on_the_card_matches_host_engine_at_smoke_size(monkeypatch,
                                                            tmp_path):
     """chip_smoke.py's chain AIR (2^20 x 8) through both file-based
-    stark_prove entries: the port with its commits on the card, and
-    eigen_zkvm_tpu's host engine.  The zkin JSON files must be
+    stark_prove entries: the port, resident on the card, and
+    eigen_zkvm_tpu's host engine; both walls are printed.  The zkin JSON files must be
     byte-identical, and their sha256 must be chip_smoke.HOST_PROOF_SHA256,
     the digest the smoke holds its own prove to."""
     if not torch.cuda.is_available():
@@ -186,9 +277,14 @@ def test_port_on_the_card_matches_host_engine_at_smoke_size(monkeypatch,
     args = (files["stark_struct"], files["pil"], files["const"], files["cm"])
     port_out, host_out = str(tmp_path / "port.json"), str(tmp_path / "host.json")
     before = kernels.counts()
-    port_prove.stark_prove(*args, zkin_out=port_out, device="cuda")
+    t0 = time.perf_counter()
+    port_prove.stark_prove(*args, zkin_out=port_out)   # the default: cuda
+    t1 = time.perf_counter()
     assert all(kernels.counts()[k] > n for k, n in before.items())
     host_prove.stark_prove(*args, zkin_out=host_out)
+    t2 = time.perf_counter()
+    print(f"load + setup + prove + verify: port {t1 - t0:.3f} s, host "
+          f"engine {t2 - t1:.3f} s")
     with open(port_out, "rb") as a, open(host_out, "rb") as b:
         port_json, host_json = a.read(), b.read()
     assert port_json == host_json
