@@ -7,9 +7,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. probe    a CUDA device must be present; prints the card's name and
               power limit as nvidia-smi reports them.
   2. build    compiles eigen_zkvm_tpu_torch/csrc/*.cu with nvcc (sm_90a).
-  3. kernels  each kernel against its plain PyTorch version on the card at
-              the main path's shapes, bit for bit (tolerance 0: finite-field
-              integer arithmetic), with both times from CUDA events.
+  3. kernels  the device field primitives (csrc/gl.cuh) against Python
+              integers on every ordered pair of their edge operands and 2^20
+              random pairs; then each kernel against its plain PyTorch
+              version on the card at the main path's shapes, bit for bit
+              (tolerance 0: finite-field integer arithmetic), edge states and
+              all-zero / all-(p-1) columns mixed into the random inputs, with
+              both times from CUDA events.  The measured IMAD.WIDE.U32 issue
+              rate is printed beside the one the bounds assume.
   4. prove    the chain AIR of scripts/bench_big.py at 2^20 rows x 8 columns
               (blowup 2, 8 queries), written to files and proved through the
               port's file-based stark_prove on the card, device-resident
@@ -136,6 +141,21 @@ def _hold(label: str, kernel, plain, reps: int, plain_reps: int,
     return dict(label=label, err=err, ms=ms, plain_ms=plain_ms, **b)
 
 
+LEAF_BITS = 8   # the leaf tile held in phase 3: [2^8, 2^16]
+
+
+def _edge_states(np):
+    """Poseidon states at the field's edges: all zero, all p-1, alternating,
+    all 2^32-1 (the edge states of tests/test_torch_poseidon.py)."""
+    from eigen_zkvm_tpu_torch.ops import gl
+
+    st = np.zeros((4, 12), dtype=np.uint64)
+    st[1, :] = gl.P_INT - 1
+    st[2, ::2] = gl.P_INT - 1
+    st[3, :] = 0xFFFFFFFF
+    return st
+
+
 def _check_kernels(dev, rng) -> list[dict]:
     """Phase 3: each kernel against its plain version at the main path's
     shapes.  The first case of a kernel is the one its line reports; its
@@ -144,17 +164,28 @@ def _check_kernels(dev, rng) -> list[dict]:
     from eigen_zkvm_tpu_torch.ops import gl, ntt, poseidon
     import numpy as np
 
-    def rand(*shape):
-        return gl.from_u64(rng.integers(0, 2**64, size=shape, dtype=np.uint64)
-                           % np.uint64(gl.P_INT), dev)
+    edge = _edge_states(np)
+
+    def rand(*shape, edge_rows=None):
+        """Random field elements; a 2-D shape gets an all-zero first and an
+        all-(p-1) second column (NTT inputs), or, with `edge_rows`, those
+        rows first (Poseidon inputs)."""
+        a = rng.integers(0, 2**64, size=shape, dtype=np.uint64) \
+            % np.uint64(gl.P_INT)
+        if edge_rows is not None:
+            a[: edge_rows.shape[0]] = edge_rows
+        elif len(shape) == 2 and shape[1] >= 2:
+            a[:, 0] = 0
+            a[:, 1] = gl.P_INT - 1
+        return gl.from_u64(a, dev)
 
     n, ext = 1 << NBITS, NBITS + 1
     # NTT: the LDE of a committed section, a leaf tile, the Q split's iNTT
     # and NTT over the extended domain (q_dim 3, q_deg 1), the first FRI
     # fold's group iNTT (2^5 rows, every group and coordinate as a column)
     x = rand(n, WIDTH)
-    leaf_x = rand(1 << ntt.KMAX, 1 << 16)
-    root = ntt._root(ntt.KMAX)
+    leaf_x = rand(1 << LEAF_BITS, 1 << 16)
+    root = ntt._root(LEAF_BITS)
     q = rand(2 * n, 3)
     grp = rand(1 << 5, 3 << 16)
     ntt_cases = [
@@ -163,10 +194,10 @@ def _check_kernels(dev, rng) -> list[dict]:
               lambda: ntt.interpolate_plain(x, NBITS, ext), 20, 3,
               8 * WIDTH * 3 * n,
               _ntt_imads(NBITS, WIDTH, True) + _ntt_imads(ext, WIDTH, False)),
-        _hold(f"ntt leaf [2^{ntt.KMAX},2^16]",
-              lambda: ntt._leaf(leaf_x, ntt.KMAX, root),
-              lambda: ntt.leaf_plain(leaf_x, ntt.KMAX, root), 20, 3,
-              8 * 2 * leaf_x.numel(), _ntt_imads(ntt.KMAX, 1 << 16, False)),
+        _hold(f"ntt leaf [2^{LEAF_BITS},2^16]",
+              lambda: ntt._leaf(leaf_x, LEAF_BITS, root),
+              lambda: ntt.leaf_plain(leaf_x, LEAF_BITS, root), 20, 3,
+              8 * 2 * leaf_x.numel(), _ntt_imads(LEAF_BITS, 1 << 16, False)),
         _hold(f"ntt Q-split intt [2^{ext},3]", lambda: ntt.intt(q, ext),
               lambda: ntt.intt_plain(q, ext), 20, 2, 8 * 2 * q.numel(),
               _ntt_imads(ext, 3, True)),
@@ -182,9 +213,9 @@ def _check_kernels(dev, rng) -> list[dict]:
     # Poseidon: one Merkle level of 2^21 digests, a bare permutation at
     # B = 2^20, the first fold tree's [2^16, 96] leaves (four 24-wide
     # chunks of three sponge calls, then two over their digests)
-    pairs = rand(n * 2, 4).view(-1, 8)
-    st = rand(n, 12)
-    leaves = rand(1 << 16, 96)
+    pairs = rand(n, 8, edge_rows=edge[:, :8])
+    st = rand(n, 12, edge_rows=edge)
+    leaves = rand(1 << 16, 96, edge_rows=np.tile(edge, (1, 8)))
     pos_cases = [
         _hold(f"poseidon merkle level 2^{ext} digests",
               lambda: poseidon.hash_n(pairs),
@@ -240,7 +271,25 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.split('info    :')[-1].strip()}")
 
-    # 3. kernels against their plain versions
+    # 3. the field primitives against Python integers, the measured IMAD
+    # rate, the kernels against their plain versions
+    from eigen_zkvm_tpu_torch import kernel_probe
+    from eigen_zkvm_tpu_torch.kernels import gl_check
+
+    bad = gl_check.failures(dev)
+    report["gl_check_failures"] = bad
+    print(f"field primitives (csrc/gl.cuh) on edge and random operands: "
+          f"{len(bad)} mismatches")
+    if bad:
+        return _fail("a device field primitive disagrees with Python "
+                     "integers: " + "; ".join(bad[:4]))
+    rate = kernel_probe.imad_issue(dev)
+    report["imad_wide"] = rate
+    print(f"IMAD.WIDE.U32 measured: {rate['imads_per_clock_per_sm']:.2f} a "
+          f"clock an SM inside a loop that issues "
+          f"{rate['instructions_per_clock_per_sm']:.2f} integer instructions "
+          f"a clock an SM at {rate['clock_ghz']:.3f} GHz; the bounds assume "
+          f"64 IMADs a clock an SM at 1.98 GHz")
     rng = np.random.default_rng(2024)
     checks = _check_kernels(dev, rng)
     report["kernel_checks"] = checks

@@ -94,6 +94,30 @@ def build(force: bool = False) -> dict:
     return {"seconds": seconds, "log": log + r.stdout + r.stderr}
 
 
+# every C entry of the library: its argument types (all return int)
+SIGNATURES = {
+    "ntt_leaf": [_I, _VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _I, _I, _VP],
+    "poseidon_gl_set_constants": [_I, _VP, _VP, _VP, _VP],
+    "poseidon_gl": [_I, _VP, _LL, _I, _VP, _VP, _LL, _I, _LL, _VP],
+    "imad_probe": [_I, _I, _I, _I, _VP, _VP, _VP],
+    "imad_probe_chains": [],
+    "gl_check": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP],
+}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the entries `lib` has (a
+    library built from some of the sources has some of them)."""
+    for symbol, argtypes in SIGNATURES.items():
+        if hasattr(lib, symbol):
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, _I
+    if hasattr(lib, "cuda_error_string"):
+        lib.cuda_error_string.argtypes = [_I]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 _lock = threading.Lock()
 _lib = None
 
@@ -104,18 +128,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             build()
-            lib = ctypes.CDLL(LIB_PATH)
-            lib.ntt_leaf.argtypes = [_I, _VP, _VP, _VP, _VP, _I, _LL, _LL,
-                                     _I, _VP]
-            lib.poseidon_gl_set_constants.argtypes = [_I, _VP, _VP, _VP, _VP]
-            lib.poseidon_gl.argtypes = [_I, _VP, _LL, _I, _VP, _VP, _LL, _I,
-                                        _LL, _VP]
-            for fn in (lib.ntt_leaf, lib.poseidon_gl_set_constants,
-                       lib.poseidon_gl):
-                fn.restype = _I
-            lib.cuda_error_string.argtypes = [_I]
-            lib.cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(ctypes.CDLL(LIB_PATH))
         return _lib
 
 
@@ -146,7 +159,8 @@ NTT = Kernel("ntt", "ntt_leaf", "eigen_zkvm_tpu_torch/csrc/ntt.cu",
              "eigen_zkvm_tpu/ops/ntt_pallas.py:158")
 POSEIDON = Kernel("poseidon_gl", "poseidon_gl",
                   "eigen_zkvm_tpu_torch/csrc/poseidon_gl.cu",
-                  "eigen_zkvm_tpu/ops/poseidon_pallas.py:51")
+                  "eigen_zkvm_tpu/ops/poseidon_pallas.py:51, "
+                  "eigen_zkvm_tpu/ops/poseidon_mxu.py:249")
 KERNELS = (NTT, POSEIDON)
 
 

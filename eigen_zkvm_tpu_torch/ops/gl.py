@@ -69,8 +69,23 @@ def neg(a):
     return torch.where(a == 0, a, P - a)
 
 
+def reduce160(lo, hi, top):
+    """(top * 2^128 + hi * 2^64 + lo) mod p for top < 2^32 - 1: the plain
+    twin of csrc/gl.cuh's reduce160, canonical.  With hi = h1 * 2^32 + h0
+    the value is lo - (top * 2^32 + h1) + h0 * (2^32 - 1)."""
+    sub_ = ((hi >> 32) & _M32) | (top << 32)
+    hi_lo = hi & _M32
+    t0 = lo - sub_
+    t0 = torch.where(ult(lo, sub_), t0 - EPS, t0)
+    t1 = (hi_lo << 32) - hi_lo
+    r = t0 + t1
+    r = torch.where(ult(r, t1), r + EPS, r)
+    return _canon(r)
+
+
 def reduce128(lo, hi):
-    """(hi * 2^64 + lo) mod p."""
+    """(hi * 2^64 + lo) mod p: reduce160 with no third word, written out
+    so that the eager path spends no launch on it."""
     hi_hi = (hi >> 32) & _M32
     hi_lo = hi & _M32
     t0 = lo - hi_hi
@@ -81,19 +96,75 @@ def reduce128(lo, hi):
     return _canon(r)
 
 
-def mul(a, b):
-    """a * b mod p; b may be a tensor or an int64 bit pattern (`as_i64`)."""
+def mul_wide(a, b):
+    """The 128-bit product (lo, hi) of two u64 bit patterns; b may be a
+    tensor or an int64 bit pattern (`as_i64`)."""
     a0, a1 = a & _M32, (a >> 32) & _M32
     b0, b1 = b & _M32, (b >> 32) & _M32
     ll, lh, hl, hh = a0 * b0, a0 * b1, a1 * b0, a1 * b1
     mid = ((ll >> 32) & _M32) + (lh & _M32) + (hl & _M32)  # < 3 * 2^32
     lo = (ll & _M32) | (mid << 32)
     hi = hh + ((lh >> 32) & _M32) + ((hl >> 32) & _M32) + (mid >> 32)
+    return lo, hi
+
+
+def mul(a, b):
+    """a * b mod p; b may be a tensor or an int64 bit pattern (`as_i64`)."""
+    return reduce128(*mul_wide(a, b))
+
+
+def sqr(a):
+    """a * a mod p with three limb products, the plain twin of csrc/gl.cuh's
+    sqr_wide: the cross product a0 * a1 is taken once and added twice."""
+    a0, a1 = a & _M32, (a >> 32) & _M32
+    t, c = a0 * a0, a0 * a1
+    u = c + ((t >> 32) & _M32)           # < 2^64: c <= (2^32 - 1)^2
+    v = c + (u & _M32)
+    hi = a1 * a1 + ((u >> 32) & _M32) + ((v >> 32) & _M32)
+    lo = (t & _M32) | (v << 32)
     return reduce128(lo, hi)
 
 
 def square(a):
     return mul(a, a)
+
+
+def mul_pow2(a, k: int):
+    """a * 2^k mod p for 0 <= k < 192, the plain twin of csrc/gl.cuh's
+    mul_pow2: the value shifted by k mod 96 has at most 160 bits and is
+    reduced once; 2^96 = -1 negates it for k >= 96."""
+    if not 0 <= k < 192:
+        raise ValueError(f"mul_pow2: k = {k}")
+    s = k % 96
+    zero = torch.zeros_like(a)
+    if s == 0:
+        r = _canon(a)
+    elif s < 64:
+        r = reduce160(a << s, (a >> (64 - s)) & ((1 << s) - 1), 0)
+    elif s == 64:
+        r = reduce160(zero, a, 0)
+    else:
+        r = reduce160(zero, a << (s - 64),
+                      (a >> (128 - s)) & ((1 << (s - 64)) - 1))
+    return r if k < 96 else neg(r)
+
+
+def dot(a, b, dim: int):
+    """sum_j a_j * b_j mod p along `dim`, the plain twin of csrc/gl.cuh's
+    Acc: the 128-bit products are summed in three words (the third counts
+    the carries) and reduced once."""
+    lo_j, hi_j = mul_wide(a, b)
+    lo_j, hi_j = lo_j.movedim(dim, 0), hi_j.movedim(dim, 0)
+    lo, hi = lo_j[0], hi_j[0]
+    top = torch.zeros_like(lo)
+    for j in range(1, lo_j.shape[0]):
+        lo = lo + lo_j[j]
+        carry = ult(lo, lo_j[j]).long()
+        hi = hi + carry
+        top = top + ult(hi, carry).long()
+        hi = hi + hi_j[j]
+        top = top + ult(hi, hi_j[j]).long()
+    return reduce160(lo, hi, top)
 
 
 def pow7(a):

@@ -8,10 +8,12 @@ A transform of up to 2^KMAX rows is one leaf: the CUDA kernel csrc/ntt.cu
 for a CUDA tensor, `leaf_plain` for a CPU tensor.  Longer transforms are a
 four-step, as ntt_pallas.ntt: leaf NTTs over the first factor, the twiddle
 multiply w^(k1*i2) and the transpose (both fused into the leaf's store),
-then the second factor, recursively.  The inverse transform runs the
-forward ladder with the inverse root and folds 1/n into the last leaf's
-store; `interpolate` folds the coset scale n^-1 * SHIFT^j there too and
-writes straight into the zero-padded extended buffer.
+then the second factor, recursively; up to 2^(2*KMAX) rows that is two
+passes over device memory.  The inverse transform runs the forward ladder
+with the inverse root and folds 1/n into the last leaf's store;
+`interpolate` folds the coset scale n^-1 * SHIFT^j there too, and hands the
+extended transform only the rows that hold coefficients: a leaf takes the
+rows it is not given as zero, so no zero-padded copy is written or read.
 
 Twiddle tables are built on the host (CPU tensors, ops/gl.py) and copied
 to the device once per (size, root, device).
@@ -25,10 +27,10 @@ import torch
 from .. import kernels
 from . import gl
 
-# Largest leaf: a [2^8, 32]-column tile is 64 KB of shared memory, so three
-# blocks fit one SM; 2^20- and 2^21-row transforms are three leaf passes
-# either way with a cap of 8 or 9.
-KMAX = 8
+# Largest leaf: a [2^11, 8]-column tile is 128 KB of the 227 KB of shared
+# memory a block may use (csrc/ntt.cu), so transforms of up to 2^22 rows are
+# two leaf passes.
+KMAX = 11
 
 
 def _root(nbits: int) -> int:
@@ -49,8 +51,8 @@ def _device_table(build):
 
 @_device_table
 def _roots(log_n: int, root: int) -> torch.Tensor:
-    """root^j for j < max(n/2, 1): the leaf's stage twiddles."""
-    return gl.powers(root, max((1 << log_n) // 2, 1))
+    """root^j for j < n: the leaf's table twiddles."""
+    return gl.powers(root, 1 << log_n)
 
 
 @_device_table
@@ -78,12 +80,24 @@ def _n_inv(nbits: int) -> torch.Tensor:
     return gl.full((1 << nbits,), gl.inv_int(1 << nbits), None)
 
 
+def _zero_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x [rows, M] with zero rows appended up to n."""
+    if x.shape[0] == n:
+        return x
+    pad = torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    pad[: x.shape[0]] = x
+    return pad
+
+
 def leaf_plain(x: torch.Tensor, log_n: int, root: int,
                post: torch.Tensor | None = None, P: int | None = None,
                transpose: bool = False) -> torch.Tensor:
     """Plain version of the leaf kernel (same arguments as `_leaf`): the
-    radix-2 ladder of poly/ntt.py over axis 0 of x [n, M], for any n."""
-    n, M = x.shape
+    radix-2 ladder of poly/ntt.py over axis 0 of x [rows <= n, M], rows
+    above the given ones zero, for any n."""
+    n = 1 << log_n
+    x = _zero_rows(x, n)
+    M = x.shape[1]
     P = M if P is None else P
     G = M // P
     buf = x[gl.bit_reverse(log_n).to(x.device)]
@@ -103,13 +117,27 @@ def leaf_plain(x: torch.Tensor, log_n: int, root: int,
     return buf
 
 
+def _is_inverse(log_n: int, root: int) -> bool:
+    """Whether `root` is the inverse of the canonical root of order
+    2^log_n (the kernel's inner twiddles are fixed powers of two, so it
+    takes these two roots only)."""
+    if root == _root(log_n):
+        return False
+    if root == _root_inv(log_n):
+        return True
+    raise ValueError(f"the NTT kernel takes the canonical root of order "
+                     f"2^{log_n} or its inverse, not {root}")
+
+
 def _leaf(x: torch.Tensor, log_n: int, root: int,
           post: torch.Tensor | None = None, P: int | None = None,
           transpose: bool = False, out: torch.Tensor | None = None):
-    """Length-2^log_n NTT along axis 0 of x [n, M] with `root`; see
-    csrc/ntt.cu for `post`, `P` and `transpose`.  `out` receives the
-    (untransposed) result when given."""
-    n, M = x.shape
+    """Length-2^log_n NTT along axis 0 of x [rows <= n, M] with `root`, the
+    rows above the given ones taken as zero; see csrc/ntt.cu for `post`,
+    `P` and `transpose`.  `out` receives the (untransposed) result when
+    given."""
+    rows, M = x.shape
+    n = 1 << log_n
     P = M if P is None else P
     if x.device.type == "cpu":
         res = leaf_plain(x, log_n, root, post, P, transpose)
@@ -118,38 +146,50 @@ def _leaf(x: torch.Tensor, log_n: int, root: int,
         return out.copy_(res)
     if not x.is_cuda:
         raise ValueError(f"no NTT for device {x.device}")
-    if x.dtype != torch.int64 or not x.is_contiguous() or n != 1 << log_n:
-        raise ValueError("the NTT kernel takes a contiguous int64 [2^a, M]")
+    if x.dtype != torch.int64 or not x.is_contiguous() or rows > n:
+        raise ValueError("the NTT kernel takes a contiguous int64 "
+                         "[rows <= 2^a, M]")
+    inverse = _is_inverse(log_n, root)
     if M == 0:  # no columns: nothing to launch or count
-        return x.clone() if out is None else out
+        return _zero_rows(x, n).clone() if out is None else out
     if log_n > KMAX or M % P:
         raise ValueError(f"leaf of 2^{log_n} rows, M={M}, P={P}")
     if out is None:
         out = torch.empty((M // P, n * P) if transpose else (n, M),
                           dtype=torch.int64, device=x.device)
-    elif transpose or not out.is_contiguous() or out.shape != x.shape:
+    elif transpose or not out.is_contiguous() or out.shape != (n, M):
         raise ValueError("`out` takes an untransposed contiguous result")
     roots = _roots(log_n, root, device=x.device)
     kernels.NTT.launch(x.device.index, x.data_ptr(), out.data_ptr(),
-                       roots.data_ptr(), kernels.pointer(post), log_n, M, P,
-                       int(transpose),
+                       roots.data_ptr(), kernels.pointer(post), log_n, rows,
+                       M, P, int(transpose), int(inverse),
                        stream=torch.cuda.current_stream(x.device).cuda_stream)
     return out
+
+
+def _split(nbits: int) -> int:
+    """The first factor's bits of a four-step of 2^nbits rows."""
+    return min((nbits + 1) // 2, KMAX)
 
 
 def _ntt(x: torch.Tensor, nbits: int, root: int,
          post: torch.Tensor | None = None, post_P: int | None = None,
          out: torch.Tensor | None = None) -> torch.Tensor:
-    """Four-step NTT of x [2^nbits, P] with `root`; the natural-order output
-    row k is multiplied by post[k] when given (post_P = the original P)."""
-    n, P = x.shape
+    """Four-step NTT of 2^nbits rows with `root`, of x [rows, P] whose
+    missing rows (a multiple of the second factor is given) are zero; the
+    natural-order output row k is multiplied by post[k] when given (post_P =
+    the original P)."""
+    rows, P = x.shape
+    n = 1 << nbits
     post_P = P if post_P is None else post_P
     if nbits <= KMAX:
         return _leaf(x, nbits, root, post, post_P, out=out)
-    a = min((nbits + 1) // 2, KMAX)
+    a = _split(nbits)
     b = nbits - a
     n1, n2 = 1 << a, 1 << b
-    y = _leaf(x.reshape(n1, n2 * P), a, gl.exp_int(root, n2),
+    if rows % n2:
+        raise ValueError(f"{rows} rows given to a four-step of {n1} x {n2}")
+    y = _leaf(x.reshape(rows // n2, n2 * P), a, gl.exp_int(root, n2),
               post=_four_step(nbits, a, root, device=x.device), P=P,
               transpose=True)                                   # [n2, n1*P]
     z = _ntt(y, b, gl.exp_int(root, n1), post, post_P,
@@ -179,15 +219,16 @@ def intt(x: torch.Tensor, nbits: int) -> torch.Tensor:
 
 def interpolate(x: torch.Tensor, nbits: int, nbits_ext: int) -> torch.Tensor:
     """Coset LDE [2^nbits, P] -> [2^nbits_ext, P]: iNTT, scale coefficient j
-    by n^-1 * SHIFT^j, zero-pad, NTT on the extended domain."""
+    by n^-1 * SHIFT^j, NTT on the extended domain with the coefficients
+    above 2^nbits zero (not stored: the first leaf pass takes the missing
+    rows as zero)."""
     x = _check(x, nbits)
-    n, P = x.shape
-    padded = torch.empty((1 << nbits_ext, P), dtype=torch.int64,
-                         device=x.device)
-    padded[n:].zero_()
-    _ntt(x, nbits, _root_inv(nbits),
-         post=_coset_scale(nbits, device=x.device), out=padded[:n])
-    return _ntt(padded, nbits_ext, _root(nbits_ext))
+    coeffs = _ntt(x, nbits, _root_inv(nbits),
+                  post=_coset_scale(nbits, device=x.device))
+    if nbits_ext > KMAX and nbits < nbits_ext - _split(nbits_ext):
+        # fewer coefficients than one row of the four-step's first factor
+        coeffs = _zero_rows(coeffs, 1 << (nbits_ext - _split(nbits_ext)))
+    return _ntt(coeffs, nbits_ext, _root(nbits_ext))
 
 
 # ---- plain versions of the whole transforms: one radix-2 ladder over the

@@ -16,6 +16,7 @@ from eigen_zkvm_tpu.hash import linearhash_gl, poseidon_gl
 from eigen_zkvm_tpu.hash.merkle_gl import MerkleTreeGL
 from eigen_zkvm_tpu.poly import ntt as ntt_np
 from eigen_zkvm_tpu_torch import kernels
+from eigen_zkvm_tpu_torch.kernels import gl_check
 from eigen_zkvm_tpu_torch.ops import commit, gl, ntt, poseidon
 
 P = 0xFFFFFFFF00000001
@@ -38,23 +39,54 @@ def _equal(got: torch.Tensor, want: torch.Tensor):
     assert torch.equal(got.cpu(), want.cpu())
 
 
+def test_device_field_primitives_match_python_integers(cuda):
+    """mul, sqr, add, sub, mul_pow2 (every k < 192), the three-word dot
+    product, add_nc and the S-box of csrc/gl.cuh on every ordered pair of
+    their edge operands and 2^20 random pairs."""
+    assert gl_check.failures(cuda) == []
+
+
 @pytest.mark.parametrize("log_n,M,P_,transpose,post", [
     (0, 7, 7, False, False), (1, 5, 5, False, True), (5, 37, 37, False, True),
-    (8, 64, 8, True, True), (8, 1000, 8, False, True), (7, 96, 3, True, False)])
-def test_ntt_leaf_kernel_matches_plain(cuda, log_n, M, P_, transpose, post):
+    (8, 64, 8, True, True), (8, 1000, 8, False, True), (7, 96, 3, True, False),
+    (2, 9, 3, True, True), (3, 16, 8, False, False), (4, 40, 8, True, True),
+    (6, 64, 8, True, False), (9, 24, 3, True, True), (10, 64, 8, True, True),
+    (10, 9, 3, False, False), (11, 24, 8, True, True),
+    (11, 16, 8, False, False)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_leaf_kernel_matches_plain(cuda, log_n, M, P_, transpose, post,
+                                       inverse):
+    """Every pass plan (radix 2, 4, 8, 16; one to three passes), both
+    roots, 8- and 16-byte tile accesses, all rows given and only the lower
+    half (the rest taken as zero)."""
     rng = np.random.default_rng(log_n * 1000 + M)
-    x = gl.from_u64(_rand(rng, 1 << log_n, M), cuda)
+    host = _rand(rng, 1 << log_n, M)
+    host[:, 0] = 0
+    host[:, -1] = P - 1
+    x = gl.from_u64(host, cuda)
     root = int(pow(7, (P - 1) >> log_n, P))
+    if inverse:
+        root = pow(root, P - 2, P)
     tab = gl.from_u64(_rand(rng, (1 << log_n) * (M // P_)), cuda) \
         if post else None
     before = kernels.NTT.launches
     got = ntt._leaf(x, log_n, root, tab, P_, transpose)
     assert kernels.NTT.launches == before + 1
     _equal(got, ntt.leaf_plain(x, log_n, root, tab, P_, transpose))
+    half = x[: max(1, (1 << log_n) // 2)]
+    _equal(ntt._leaf(half, log_n, root, tab, P_, transpose),
+           ntt.leaf_plain(half, log_n, root, tab, P_, transpose))
+
+
+def test_ntt_leaf_kernel_refuses_other_roots(cuda):
+    x = torch.zeros((32, 8), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        ntt._leaf(x, 5, pow(gl.root_of_unity(5), 3, P))
 
 
 @pytest.mark.parametrize("nbits,nbits_ext,P_", [(6, 8, 3), (12, 13, 8),
-                                                (17, 18, 5)])
+                                                (17, 18, 5), (13, 16, 2),
+                                                (2, 13, 3), (21, 22, 3)])
 def test_ntt_paths_kernel_matches_plain_and_host(cuda, nbits, nbits_ext, P_):
     rng = np.random.default_rng(nbits)
     host = _rand(rng, 1 << nbits, P_)
@@ -79,13 +111,18 @@ def test_poseidon_permute_kernel_matches_plain(cuda, B):
                           poseidon_gl.permute(st[:, :8], st[:, 8:]))
 
 
-def test_poseidon_hash_n_strided_input_and_capacity(cuda):
+@pytest.mark.parametrize("stride,offset", [(21, 5), (16, 4), (8, 0), (9, 1)])
+def test_poseidon_hash_n_strided_input_and_capacity(cuda, stride, offset):
+    """Rows the kernel reads 8 bytes at a time (odd stride or offset) and
+    rows it reads 16 bytes at a time."""
     rng = np.random.default_rng(3)
-    rows = gl.from_u64(_rand(rng, 300, 21), cuda)
+    rows = gl.from_u64(_rand(rng, 300, stride), cuda)
     cap = gl.from_u64(_rand(rng, 300, 4), cuda)
-    inp = rows[:, 5:13]                                   # row stride 21
+    inp = rows[:, offset : offset + 8]
     _equal(poseidon.hash_n(inp, cap), poseidon.hash_n_plain(inp, cap))
     _equal(poseidon.hash_n(inp), poseidon.hash_n_plain(inp))
+    out = torch.empty((301, 4), dtype=torch.int64, device=cuda)[1:]
+    _equal(poseidon.hash_n(inp, out=out), poseidon.hash_n_plain(inp))
 
 
 @pytest.mark.parametrize("w", [0, 3, 4, 8, 9, 12, 20, 37, 96])

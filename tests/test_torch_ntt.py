@@ -91,6 +91,76 @@ def test_four_step_interpolate_at_the_commit_shape(monkeypatch):
                           ntt_np.interpolate(x, 10, 11))
 
 
+@pytest.mark.parametrize("fn,args", [("ntt", (13,)), ("intt", (13,)),
+                                     ("interpolate", (12, 13)),
+                                     ("interpolate", (13, 15))])
+def test_four_step_at_the_kernel_leaf_cap(fn, args):
+    """One size above 2^KMAX, so the two-pass composition the card runs at
+    2^20-2^22 rows (first factor 2^7, second 2^6 at 2^13) runs on the CPU
+    with the cap the kernel has."""
+    assert ntt.KMAX == 11 and args[-1] > ntt.KMAX
+    x = _rand(sum(args), 1 << args[0], 3)
+    assert np.array_equal(_port(getattr(ntt, fn), x, *args),
+                          getattr(ntt_np, fn)(x, *args))
+
+
+def test_four_step_at_the_cap_matches_pallas_interpreter_shape():
+    """The Pallas interpreter's one small shape ([2^6, 8]), with the port's
+    leaf cap lowered so that it is a four-step with the zero half unread:
+    held to the interpreted kernel's interpolate."""
+    nbits = 6
+    x = _rand(6, 1 << nbits, 8)
+    want = _join(nt.interpolate(_pair(x), nbits, nbits + 2, interpret=True))
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(ntt, "KMAX", 5)
+        assert np.array_equal(_port(ntt.interpolate, x, nbits, nbits + 2),
+                              want)
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("nbits,ext,kmax", [(4, 5, 11), (6, 9, 4), (10, 11, 3),
+                                            (2, 9, 4), (12, 14, 11)])
+def test_interpolate_with_the_zero_half_unread(monkeypatch, nbits, ext, kmax):
+    """`interpolate` hands the extended transform only the coefficient rows
+    (or, where there are fewer than one row of the first factor, pads);
+    `interpolate_plain` pads with zeros and runs one long ladder."""
+    monkeypatch.setattr(ntt, "KMAX", kmax)
+    x = _rand(nbits * 31 + ext, 1 << nbits, 3)
+    assert np.array_equal(_port(ntt.interpolate, x, nbits, ext),
+                          _port(ntt.interpolate_plain, x, nbits, ext))
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8, 16])
+def test_leaf_takes_missing_rows_as_zero(rows):
+    log_n, M = 4, 6
+    x = _rand(rows, rows, M)
+    full = np.zeros((1 << log_n, M), dtype=np.uint64)
+    full[:rows] = x
+    root = gl.root_of_unity(log_n)
+    post = _rand(rows + 1, (1 << log_n) * 2)
+    got = ntt._leaf(gl.from_u64(x), log_n, root, gl.from_u64(post), 3, True)
+    want = ntt._leaf(gl.from_u64(full), log_n, root, gl.from_u64(post), 3,
+                     True)
+    assert torch.equal(got, want)
+    assert np.array_equal(gl.to_u64(ntt._leaf(gl.from_u64(x), log_n, root)),
+                          ntt_np.ntt(full, log_n))
+
+
+def test_kernel_roots_are_the_canonical_ones_and_powers_of_two():
+    """The kernel's inner twiddles: the canonical roots of order 2, 4, 8 and
+    16 are 2^96, 2^48, 2^120 and 2^156, and 2 has order 192.  Any other root
+    is refused."""
+    for t, e in ((1, 96), (2, 48), (3, 120), (4, 156)):
+        assert gl.root_of_unity(t) == pow(2, e, P)
+    assert pow(2, 192, P) == 1 and pow(2, 96, P) == P - 1
+    assert ntt._is_inverse(5, gl.root_of_unity(5)) is False
+    assert ntt._is_inverse(5, gl.inv_int(gl.root_of_unity(5))) is True
+    with pytest.raises(ValueError):
+        ntt._is_inverse(5, pow(gl.root_of_unity(5), 3, P))
+
+
 def test_leaf_post_and_transpose_layout():
     """The leaf's fused store, by the DFT's definition: element (r, c)
     times post[(r*M + c) // P], then out[(c // P) * n + r, c % P]."""

@@ -74,6 +74,22 @@ def test_hash_n_with_and_without_capacity():
     assert np.array_equal(gl.to_u64(out), pnp.hash_n(inp, zero))
 
 
+@pytest.mark.parametrize("stride,offset", [(8, 0), (16, 4), (21, 5), (9, 1)])
+def test_hash_n_rows_aligned_to_16_bytes_and_not(stride, offset):
+    """`hash_n` reads its 8 lanes at any row stride: rows that start on a
+    16-byte boundary (even stride and offset; the kernel reads those 16
+    bytes at a time) and rows that do not (stride 21, as the leaf hash of a
+    21-column section reads them)."""
+    rows = gl.from_u64(_rand(stride, B, stride))
+    cap = _rand(offset + 50, B, 4)
+    inp = rows[:, offset : offset + 8]
+    assert inp.stride(0) == stride
+    got = gl.to_u64(poseidon.hash_n(inp, gl.from_u64(cap)))
+    assert np.array_equal(got, pnp.hash_n(gl.to_u64(inp), cap))
+    st = np.concatenate([gl.to_u64(inp), cap], axis=1)
+    assert np.array_equal(got, pnp.permute(st[:, :8], st[:, 8:])[:, :4])
+
+
 @pytest.mark.parametrize("w", [0, 3, 4, 8, 9, 12, 20, 37])
 def test_hash_leaves_linearhash_chunking(w):
     """Against the native leaf hash and linearhash_gl's numpy path (forced
