@@ -1,7 +1,7 @@
 """Carry state between eigen_zkvm_tpu (JAX) and the port.
 
 Nothing here imports the JAX package: its objects are read by duck typing,
-its limb pairs as numpy (or JAX) arrays.
+its limb pairs as numpy (or JAX) arrays, its curve points as affine ints.
 
 The JAX package keeps a field element as a u32 (lo, hi) limb pair; the port
 keeps its u64 bit pattern in one int64 tensor (ops/gl.py).
@@ -11,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .groth16 import groth16 as g16
 from .hash.merkle import ZeroMerkleTreeGL
-from .ops import commit, gl
+from .ops import commit, ec, gl
 from .stark.stark_setup import StarkSetup
 
 
@@ -72,3 +73,29 @@ def setup_from_jax(setup, device: torch.device | str) -> StarkSetup:
         gl.from_u64(nodes, device), height, width,
         gl.from_u64(elements, device))
     return out
+
+
+def groth16_keys_from_jax(pk, vk, device: torch.device | str):
+    """A JAX-package Groth16 key pair (BN254) as the port's, the proving
+    key's queries on `device`.  The points are read as affine ints, by
+    element access (lists, or `native.RawAffine`, whose elements decode to
+    affine tuples), never in the native kernels' limb layout."""
+    device = torch.device(device)
+
+    def g1(points):
+        return ec.affine_tensor(ec.G1, [points[i] for i in range(len(points))],
+                                device)
+
+    out_pk = g16.ProvingKey(
+        curve_name=pk.curve_name, n_public=pk.n_public, n_vars=pk.n_vars,
+        domain_size=pk.domain_size, alpha1=pk.alpha1, beta1=pk.beta1,
+        beta2=pk.beta2, delta1=pk.delta1, delta2=pk.delta2,
+        a_query=g1(pk.a_query), b1_query=g1(pk.b1_query),
+        b2_query=ec.affine_tensor(
+            ec.G2, [pk.b2_query[i] for i in range(len(pk.b2_query))], device),
+        l_query=g1(pk.l_query), h_query=g1(pk.h_query))
+    out_vk = g16.VerifyingKey(
+        curve_name=vk.curve_name, alpha1=vk.alpha1, beta2=vk.beta2,
+        gamma2=vk.gamma2, delta2=vk.delta2,
+        ic=[vk.ic[i] for i in range(len(vk.ic))])
+    return out_pk, out_vk

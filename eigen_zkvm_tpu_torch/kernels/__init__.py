@@ -102,6 +102,14 @@ SIGNATURES = {
     "imad_probe": [_I, _I, _I, _I, _VP, _VP, _VP],
     "imad_probe_chains": [],
     "gl_check": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP],
+    "bn254_check": [_I, _I, _I, _VP, _VP, _VP, _LL, _VP],
+    "msm_sum": [_I, _I, _I, _VP, _VP, _VP, _LL, _VP, _VP],
+    "msm_combine": [_I, _I, _VP, _I, _I, _VP, _VP],
+    "ec_fixed_base": [_I, _I, _VP, _VP, _LL, _VP, _VP],
+    "fr_ntt_stage": [_I, _VP, _VP, _I, _I, _VP],
+    "fr_mul": [_I, _VP, _VP, _I, _VP, _LL, _VP],
+    "fr_quotient": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
+    "r1cs_eval": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
 }
 
 
@@ -139,7 +147,8 @@ def check(name: str, err: int):
 
 
 class Kernel:
-    """One hand-written CUDA kernel: its C entry and its launch count."""
+    """One hand-written CUDA kernel: its C entry (or entries, one a stage)
+    and its launch count."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str):
         self.name = name
@@ -148,9 +157,12 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
 
-    def launch(self, device_index: int, *args, stream: int):
-        """Call the C entry on `device_index` and PyTorch's `stream`."""
-        err = getattr(library(), self.symbol)(device_index, *args, stream)
+    def launch(self, device_index: int, *args, stream: int,
+               entry: str | None = None):
+        """Call the C entry (`entry`, else the kernel's own) on
+        `device_index` and PyTorch's `stream`."""
+        err = getattr(library(), entry or self.symbol)(device_index, *args,
+                                                        stream)
         check(self.name, err)
         self.launches += 1
 
@@ -161,7 +173,20 @@ POSEIDON = Kernel("poseidon_gl", "poseidon_gl",
                   "eigen_zkvm_tpu_torch/csrc/poseidon_gl.cu",
                   "eigen_zkvm_tpu/ops/poseidon_pallas.py:51, "
                   "eigen_zkvm_tpu/ops/poseidon_mxu.py:249")
-KERNELS = (NTT, POSEIDON)
+MSM = Kernel("msm", "msm_sum", "eigen_zkvm_tpu_torch/csrc/msm.cu",
+             "eigen_zkvm_tpu/ops/ec_jax.py::_msm_core (:154, with "
+             "_tree_reduce :127)")
+EC_BATCH = Kernel("ec_batch", "ec_fixed_base",
+                  "eigen_zkvm_tpu_torch/csrc/ec_batch.cu",
+                  "eigen_zkvm_tpu/groth16/groth16.py::_fixed_base_all (:221)")
+FR_NTT = Kernel("fr_ntt", "fr_ntt_stage",
+                "eigen_zkvm_tpu_torch/csrc/fr_ntt.cu",
+                "eigen_zkvm_tpu/groth16/groth16.py::_witness_h (:315; "
+                "_ntt/_intt :34-72)")
+R1CS = Kernel("r1cs", "r1cs_eval", "eigen_zkvm_tpu_torch/csrc/r1cs.cu",
+              "eigen_zkvm_tpu/groth16/groth16.py::_witness_h (:315; "
+              "_r1cs_csr :283)")
+KERNELS = (NTT, POSEIDON, MSM, EC_BATCH, FR_NTT, R1CS)
 
 
 def reset_counts():

@@ -6,7 +6,7 @@ no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Comparisons are bit-exact (tolerance 0): all of it is integer arithmetic in
-the Goldilocks field.
+the Goldilocks field, in BN254's Fq, Fr and Fq2, or on its curves.
 """
 import numpy as np
 import pytest
@@ -15,9 +15,15 @@ import torch
 from eigen_zkvm_tpu.hash import linearhash_gl, poseidon_gl
 from eigen_zkvm_tpu.hash.merkle_gl import MerkleTreeGL
 from eigen_zkvm_tpu.poly import ntt as ntt_np
+from eigen_zkvm_tpu.curves import bn254 as jbn
+from eigen_zkvm_tpu.curves.msm import msm_g1, msm_g2
+from eigen_zkvm_tpu_torch import bench_groth16 as bg
 from eigen_zkvm_tpu_torch import kernels
-from eigen_zkvm_tpu_torch.kernels import gl_check
-from eigen_zkvm_tpu_torch.ops import commit, gl, ntt, poseidon
+from eigen_zkvm_tpu_torch.groth16 import api as g16_api
+from eigen_zkvm_tpu_torch.kernels import bn254_check, gl_check
+from eigen_zkvm_tpu_torch.ops import bigint as bi
+from eigen_zkvm_tpu_torch.ops import (commit, ec, fr_ntt, gl, ntt, poseidon,
+                                      r1cs)
 
 P = 0xFFFFFFFF00000001
 pytestmark = pytest.mark.cuda
@@ -154,3 +160,98 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                      device=cuda))
     with pytest.raises(ValueError):
         ntt.ntt(torch.zeros((6, 2), dtype=torch.int64, device=cuda), 3)
+
+
+def test_bn254_field_primitives_match_python_ints(cuda):
+    """add, sub, neg, mul, sqr, inv of Fq and Fr and mul, sqr, inv of Fq2
+    (csrc/bn254.cuh) on every ordered pair of their edge operands and
+    2^14 random pairs."""
+    assert bn254_check.failures(cuda, 1 << 14) == []
+
+
+def _bn254_points(g, n, seed, device):
+    import random
+
+    rng = random.Random(seed)
+    return ec.scalar_mul_batch(g, ec.generator(g), bi.to_tensor(
+        [rng.randrange(1, jbn.R) for _ in range(n)], device))
+
+
+@pytest.mark.parametrize("g,n", [(ec.G1, 1), (ec.G1, 300), (ec.G1, 4096),
+                                 (ec.G2, 300)], ids=["G1-1", "G1-300",
+                                                     "G1-4096", "G2-300"])
+def test_msm_kernel_matches_plain_and_python(cuda, g, n):
+    """Infinity points, a duplicated point, scalars 0, 1 and r - 1, and a
+    hot bucket of scalar 1 and 0."""
+    import random
+
+    rng = random.Random(n)
+    pts = _bn254_points(g, n, n, cuda)
+    ks = [rng.randrange(jbn.R) for _ in range(n)]
+    if n > 20:
+        pts[3] = 0
+        pts[9] = pts[8]
+        ks[0], ks[1], ks[2] = 0, 1, jbn.R - 1
+        for i in range(10, n // 2):
+            ks[i] = i & 1
+    S = bi.to_tensor(ks, cuda)
+    before = kernels.MSM.launches
+    got = ec.msm(g, pts, S)
+    assert kernels.MSM.launches > before
+    _equal(got, ec.msm_plain(g, pts, S))
+    if n <= 300:
+        want = (msm_g1 if g is ec.G1 else msm_g2)(
+            jbn, ec.affine_ints(g, pts), ks)
+        assert ec.affine_ints(g, got)[0] == want
+
+
+@pytest.mark.parametrize("g", [ec.G1, ec.G2], ids=["G1", "G2"])
+def test_fixed_base_kernel_matches_plain(cuda, g):
+    import random
+
+    rng = random.Random(4)
+    ks = [0, 1, 2, jbn.R - 1] + [rng.randrange(jbn.R) for _ in range(1000)]
+    S = bi.to_tensor(ks, cuda)
+    before = kernels.EC_BATCH.launches
+    got = ec.scalar_mul_batch(g, ec.generator(g), S)
+    assert kernels.EC_BATCH.launches == before + 1
+    _equal(got, ec.scalar_mul_batch_plain(g, ec.generator(g), S))
+
+
+@pytest.mark.parametrize("log_n", [1, 5, 12])
+def test_fr_ntt_kernel_matches_plain(cuda, log_n):
+    import random
+
+    rng = random.Random(log_n)
+    x = bi.mont_ints(bi.FR, [rng.randrange(jbn.R) for _ in range(1 << log_n)],
+                     cuda)
+    for inverse in (False, True):
+        _equal(fr_ntt.ntt(x, log_n, inverse), fr_ntt.ntt_plain(x, log_n,
+                                                                inverse))
+    k = fr_ntt.mont_const(12345, cuda)
+    _equal(fr_ntt.quotient(x, x, x, k), fr_ntt.quotient_plain(x, x, x, k))
+    _equal(fr_ntt.mul(x, x), fr_ntt.mul_plain(x, x))
+    _equal(fr_ntt.mul(x, k), fr_ntt.mul_plain(x, k))
+
+
+def test_r1cs_kernel_matches_plain(cuda):
+    circ = bg.synthetic(3000, 2, seed=5)
+    wit = fr_ntt.to_mont(bi.to_tensor(circ.w, cuda))
+    for mat in r1cs.build(circ.constraints, cuda):
+        _equal(r1cs.evaluate(mat, wit), r1cs.evaluate_plain(mat, wit))
+
+
+def test_groth16_on_the_card_writes_the_cpu_bytes(cuda):
+    """A 2^10 synthetic circuit: setup and prove on the card (the default
+    device) and on the CPU write the same proof JSON."""
+    circ = bg.synthetic((1 << 10) - 3, 2, seed=4)
+    out = []
+    for device in (None, "cpu"):
+        pk, vk = g16_api.groth16_setup_inplace("bn128", circ,
+                                               rng=bg.seeded(11),
+                                               device=device)
+        proof, pubs = g16_api.groth16_prove_inplace("bn128", circ, pk,
+                                                    rng=bg.seeded(12))
+        assert g16_api.groth16_verify_inplace("bn128", vk, proof, pubs)
+        out.append(g16_api.proof_to_json(proof, "bn128"))
+    assert out[0] == out[1]

@@ -155,6 +155,17 @@ def test_proving_with_the_port_never_imports_jax():
         from eigen_zkvm_tpu_torch.stark.stark_gen import stark_gen
         from eigen_zkvm_tpu_torch.stark.stark_setup import StarkSetup
         from eigen_zkvm_tpu_torch.stark.stark_verify import stark_verify
+        from eigen_zkvm_tpu_torch import bench_groth16, convert
+        from eigen_zkvm_tpu_torch.curves import bn254
+        from eigen_zkvm_tpu_torch.groth16 import api, groth16
+        from eigen_zkvm_tpu_torch.kernels import bn254_check
+        from eigen_zkvm_tpu_torch.ops import bigint, ec, fr_ntt, r1cs
+        circ = bench_groth16.synthetic(12, 2, seed=1)
+        assert bench_groth16.check(circ)
+        x = bigint.mont_ints(bigint.FR, circ.w[:8])
+        assert fr_ntt.ntt(fr_ntt.ntt(x, 3), 3, inverse=True).shape == (8, 4)
+        assert ec.affine_ints(ec.G1, ec.affine_tensor(
+            ec.G1, [bn254.G1_GEN])) == [bn254.G1_GEN]
         pil, cp, cm = bench_chain.build_chain_air(4, 2)
         ss = bench_chain.chain_struct(4, 2)
         e = Engine("cpu")
@@ -192,8 +203,35 @@ def test_port_sources_import_nothing_of_the_jax_package():
                                    "*.py"), recursive=True)
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     assert len(files) > 20
+    dirs = {os.path.relpath(os.path.dirname(f), ROOT) for f in files}
+    assert {"eigen_zkvm_tpu_torch/curves", "eigen_zkvm_tpu_torch/groth16",
+            "eigen_zkvm_tpu_torch/ops"} <= dirs
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
+    assert not bad, bad
+
+
+def test_cuda_sources_include_only_their_own_headers():
+    """csrc/*.cu and *.cuh include system headers (<...>) and headers of
+    csrc itself, nothing of the JAX package's native/ sources."""
+    csrc = os.path.join(ROOT, "eigen_zkvm_tpu_torch", "csrc")
+    files = glob.glob(os.path.join(csrc, "*.cu*"))
+    assert {"bn254.cuh", "msm.cu", "ec_batch.cu", "fr_ntt.cu",
+            "r1cs.cu"} <= {os.path.basename(f) for f in files}
+    bad = []
+    for f in files:
+        with open(f) as fh:
+            for line in fh:
+                line = line.strip()
+                if not line.startswith("#include"):
+                    continue
+                name = line.split(None, 1)[1]
+                if name.startswith("<"):
+                    continue
+                local = name.strip('"')
+                if "/" in local or not os.path.exists(
+                        os.path.join(csrc, local)):
+                    bad.append((os.path.basename(f), name))
     assert not bad, bad
 
 
