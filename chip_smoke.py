@@ -22,7 +22,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               their plain versions, exactly: the MSM (csrc/msm.cu, against
               ec_jax's double-and-add in ops/ec.msm_plain) in G1 and G2 at
               n = 2^16 with infinity points, a duplicated point,
-              scalars 0, 1 and r - 1 and a hot bucket; the fixed-base batch
+              scalars 0, 1 and r - 1, a hot bucket and signed digits at
+              +-2^(c-1) with carries; the fixed-base batch
               (csrc/ec_batch.cu) at 2^16 lanes in G1 and G2; the Fr NTT
               (csrc/fr_ntt.cu) at 2^21 and 2^16, and at 2^21 its pointwise
               products (by a table, by a constant, the quotient).
@@ -396,8 +397,11 @@ def _check_groth16_kernels(dev, rng) -> dict:
 
     # K1 against ec_jax's double-and-add: infinity points, a duplicated
     # point, scalars 0, 1 and r - 1, a hot bucket (a quarter of the scalars
-    # 1, a quarter 0)
+    # 1, a quarter 0), signed digits at +2^(c-1) in every window and at
+    # 2^(c-1) + 1 (negative, with a carry into the next window)
     k1_cases = []
+    c = ec.window_bits(n)
+    half, W = 1 << (c - 1), ec.n_windows(c)
     for g, label in ((ec.G1, "G1"), (ec.G2, "G2")):
         pts = points[label].clone()
         pts[5] = 0
@@ -405,6 +409,9 @@ def _check_groth16_kernels(dev, rng) -> dict:
         pts[9] = pts[8]
         ks = scalars(n)
         ks[0], ks[1], ks[2] = 0, 1, R - 1
+        ks[3] = sum(half << (c * w) for w in range(W - 1)) % (1 << 253)
+        ks[4] = sum((half + 1) << (c * w) for w in range(W - 1)) % (1 << 253)
+        ks[6] = (1 << 253) | (1 << 252)
         for i in range(10, n // 2):
             ks[i] = i & 1
         S = bi.to_tensor(ks, dev)

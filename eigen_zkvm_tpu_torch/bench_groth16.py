@@ -20,7 +20,10 @@ so every prove writes the same bytes, and the JAX package given the same
 draws writes them too.  The timer runs setup once, then `--runs` proves (the first cold: CSR,
 twiddle tables, allocator), each verified, and prints per prove the `Prof`
 stage split with the device drained at every tick, the kernel launches and
-the peak device memory; the last line is one JSON object.
+the peak device memory; the last line is one JSON object.  `--trace`
+then splits the prove's A (G1) and B2 (G2) MSMs by stage: each is run
+again with a `trace` list (ops/ec.msm) and the card's time and the host's
+time between the stage boundaries printed (the second of two runs).
 """
 from __future__ import annotations
 
@@ -111,6 +114,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--trace", action="store_true",
+                    help="split the A and B2 MSMs by stage (needs CUDA)")
     args = ap.parse_args(argv)
 
     import os
@@ -160,8 +165,41 @@ def main(argv=None) -> int:
     report["runs"] = runs
     if dev.type == "cuda":
         report["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if args.trace and dev.type == "cuda":
+        report["msm_trace"] = trace_msms(circ, pk)
     print(json.dumps(report))
     return 0 if all(r["verified"] for r in runs) else 1
+
+
+def trace_msms(circ: Circuit, pk) -> dict:
+    """The prove's A (G1) and B2 (G2) MSMs split by stage on the card:
+    {query: [{stage, device_ms, host_ms, ...}]}, from the second of two
+    traced runs."""
+    from .ops import bigint as bi
+    from .ops import ec
+
+    dev = pk.a_query.device
+    wit = bi.to_tensor([int(v) % R for v in circ.w], dev)
+    out = {}
+    for g, label, pts in ((ec.G1, "A", pk.a_query),
+                          (ec.G2, "B2", pk.b2_query)):
+        for _ in range(2):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            tr = []
+            ec.msm(g, pts, wit, trace=tr)
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        stages = ec.stage_times(tr)
+        out[label] = {"n": pts.shape[0], "wall_ms": wall, "stages": stages}
+        print(f"msm {label} ({g}, n={pts.shape[0]}): {wall:.3f} ms wall",
+              flush=True)
+        for st in stages:
+            extra = {k: v for k, v in st.items()
+                     if k not in ("stage", "device_ms", "host_ms")}
+            print(f"  {st['stage']}: card {st['device_ms']:.3f} ms, host "
+                  f"{st['host_ms']:.3f} ms {extra or ''}", flush=True)
+    return out
 
 
 def _sync(dev: torch.device):

@@ -1,0 +1,125 @@
+"""Time the Groth16 prover's two elliptic-curve kernels of one tree of the
+port at the shapes of a Groth16 run, for comparing two trees in one call.
+
+    python eigen_zkvm_tpu_torch/bench_msm.py --root DIR [--constraints N]
+        [--runs 3] [--reps 5]
+
+Imports `eigen_zkvm_tpu_torch` from DIR (a checkout of this repository,
+this one or another), so one script times two trees alike.  It builds
+bench_groth16's synthetic circuit, runs setup and `--runs` proves through
+groth16/api.py with the device drained at every `Prof` tick (the stage
+split of setup and of each prove), then times, with CUDA events over
+`--reps` launches after a warm-up: the MSM on the prove's A query (G1) and
+B2 query (G2) with the witness, and the fixed-base batch at setup's G1 and
+G2 lane counts on random scalars below 2^253, every fourth one 0.  The last
+line is one JSON object.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+import time
+
+
+def _time_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--constraints", type=int, default=(1 << 21) - 3)
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    os.environ.setdefault("EIGEN_ZKVM_SYNC", "1")
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    from eigen_zkvm_tpu_torch import bench_groth16 as bg
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.groth16 import api
+    from eigen_zkvm_tpu_torch.ops import bigint as bi
+    from eigen_zkvm_tpu_torch.ops import ec
+    from eigen_zkvm_tpu_torch.utils.devices import card_line, cuda_device
+    from eigen_zkvm_tpu_torch.utils.profiler import Prof
+
+    dev = cuda_device(0)
+    report = {"root": args.root, "card": card_line(),
+              "module": os.path.dirname(os.path.abspath(ec.__file__))}
+    t0 = time.perf_counter()
+    kernels.library()
+    report["build_s"] = time.perf_counter() - t0
+    circ = bg.synthetic(args.constraints, 2, args.seed)
+    prof = Prof("groth16.setup", dev, on=True)
+    t0 = time.perf_counter()
+    pk, vk = api.groth16_setup_inplace("bn128", circ,
+                                       rng=bg.seeded(args.seed), device=dev,
+                                       prof=prof)
+    torch.cuda.synchronize(dev)
+    report["setup_s"] = time.perf_counter() - t0
+    report["setup_stages"] = prof.stages
+    runs = []
+    for _ in range(args.runs):
+        kernels.reset_counts()
+        prof = Prof("groth16.prove", dev, on=True)
+        t0 = time.perf_counter()
+        proof, pubs = api.groth16_prove_inplace(
+            "bn128", circ, pk, rng=bg.seeded(args.seed + 1), prof=prof)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        ok = api.groth16_verify_inplace("bn128", vk, proof, pubs)
+        sha = hashlib.sha256(
+            api.proof_to_json(proof, "bn128").encode()).hexdigest()
+        runs.append({"prove_s": wall, "verified": ok, "sha256": sha,
+                     "stages": prof.stages, "launches": kernels.counts()})
+        print(f"prove {wall:.3f} s {ok} {sha[:16]}: " + ", ".join(
+            f"{s} {t:.3f}" for s, t in prof.stages), flush=True)
+    report["runs"] = runs
+
+    wit = bi.to_tensor([int(v) % bg.R for v in circ.w], dev)
+    k1 = {}
+    for g, label, pts in ((ec.G1, "A", pk.a_query),
+                          (ec.G2, "B2", pk.b2_query)):
+        k1[label] = _time_ms(lambda: ec.msm(g, pts, wit), args.reps)
+    n1 = 3 + 2 * pk.n_vars + pk.l_query.shape[0] + pk.n_public + 1 \
+        + pk.h_query.shape[0]
+    n2 = 3 + pk.n_vars
+    del pk, vk, wit
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    k2 = {}
+    for g, label, n in ((ec.G2, "G2", n2), (ec.G1, "G1", n1)):
+        S = torch.randint(-2**63, 2**63 - 1, (n, 4), dtype=torch.int64,
+                          device=dev, generator=gen)
+        S[:, 3] &= (1 << 61) - 1
+        S[::4] = 0
+        base = ec.generator(g)
+        k2[label] = {"lanes": n, "ms": _time_ms(
+            lambda: ec.scalar_mul_batch(g, base, S), 2)}
+        del S
+    report.update(k1_ms=k1, k2=k2,
+                  peak_bytes=torch.cuda.max_memory_allocated(dev))
+    print(f"K1 A {k1['A']:.3f} ms, B2 {k1['B2']:.3f} ms; K2 G2 "
+          f"{k2['G2']['ms']:.3f} ms ({n2} lanes), G1 {k2['G1']['ms']:.3f} ms "
+          f"({n1} lanes); setup {report['setup_s']:.3f} s", flush=True)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,7 +12,8 @@
 // Multiplication is CIOS (coarsely integrated operand scanning) over the
 // eight limbs: each of the 8 rounds adds a[j] * b[i] and m * q[j] into a
 // running 9-limb value through 64-bit multiply-adds, which the compiler
-// issues as IMAD.WIDE.U32 (full rate on this card: PERF.md section 6); one
+// issues as IMAD.WIDE.U32 and 64-bit adds: 580 instructions a product
+// (kernel_probe; PTX mad.lo/mad.hi carry chains compile to 828 here); one
 // conditional subtraction at the end.  Both moduli are below 2^254, so no
 // sum ever leaves 256 bits plus one limb.
 //
@@ -241,6 +242,9 @@ __device__ __forceinline__ Fq2 sub(const Fq2& a, const Fq2& b) {
   return {sub(a.c0, b.c0), sub(a.c1, b.c1)};
 }
 __device__ __forceinline__ Fq2 dbl(const Fq2& a) { return add(a, a); }
+__device__ __forceinline__ Fq2 neg(const Fq2& a) {
+  return {neg(a.c0), neg(a.c1)};
+}
 __device__ __forceinline__ bool is_zero(const Fq2& a) {
   return is_zero(a.c0) && is_zero(a.c1);
 }
@@ -345,6 +349,14 @@ __device__ __forceinline__ void store_jacobian(int64_t* p, const Jac<E>& a) {
   Coord<E>::store(p, a.X);
   Coord<E>::store(p + W, a.Y);
   Coord<E>::store(p + 2 * W, a.Z);
+}
+
+// infinity as the zero words (Z = 0), the form the plain versions write
+template <class E>
+__device__ __forceinline__ void store_jacobian_zero(int64_t* p) {
+  constexpr int W = Coord<E>::kWords;
+#pragma unroll
+  for (int i = 0; i < 3 * W; ++i) p[i] = 0;
 }
 
 // dbl-2009-l

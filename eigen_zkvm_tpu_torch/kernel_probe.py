@@ -17,6 +17,12 @@ kPartialUnroll at a time (read from csrc/poseidon_gl.cu).  The
 NTT's loops depend on the shape, so it is read per butterfly from the loop of
 each register pass: a radix-2^r pass does r * 2^(r-1) butterflies a trip and
 2^r - 1 table products, each four IMAD.WIDE.U32.
+
+BN254 (csrc/bn254.cuh): the never-launched kernels of csrc/bn254_probe.cu
+each hold one loop whose body is one primitive, so the body's count is the
+instructions of one Fq product, Fq square, Fq2 product, mixed addition (G1,
+G2; its body holds the inlined doubling of P + P as well) and G1 doubling;
+every loop of the MSM and fixed-base kernels is listed with the rest.
 """
 from __future__ import annotations
 
@@ -177,6 +183,21 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bn254_bodies(sass: dict) -> dict:
+    """{probe kernel: its loop body's histogram}: one BN254 primitive a
+    trip (csrc/bn254_probe.cu); printed with the IMAD.WIDE.U32 share."""
+    out = {}
+    for name, s in sorted(sass.items()):
+        if not name.startswith("probe_") or not s["loops"]:
+            continue
+        body = max(s["loops"], key=lambda lp: lp["total"])
+        out[name] = body
+        print(f"bn254 {name[len('probe_'):]}: {body['total']} instructions "
+              f"a trip ({body.get('int', 0)} integer, {body['imad_wide']} "
+              f"IMAD.WIDE, {body.get('mem', 0)} memory)")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -210,6 +231,8 @@ def main() -> int:
                          f"a butterfly")
             print(line)
 
+    report_bn254 = bn254_bodies(sass)
+
     wide = imad_rate(dev, True)
     narrow = imad_rate(dev, False)
     issue = imad_issue(dev)
@@ -230,7 +253,8 @@ def main() -> int:
 
     report = {"card": card, "imad_wide": wide, "imad_32": narrow,
               "imad_issue": issue,
-              "sass": sass, "slots_per_s": slots_per_s}
+              "sass": sass, "slots_per_s": slots_per_s,
+              "bn254": report_bn254}
     pos = next((s for n, s in sass.items() if "poseidon" in n), None)
     if pos is not None:
         B = 1 << 20

@@ -103,9 +103,12 @@ SIGNATURES = {
     "imad_probe_chains": [],
     "gl_check": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP],
     "bn254_check": [_I, _I, _I, _VP, _VP, _VP, _LL, _VP],
-    "msm_sum": [_I, _I, _I, _VP, _VP, _VP, _LL, _VP, _VP],
+    "msm_digits": [_I, _VP, _I, _VP, _LL, _I, _I, _VP, _VP, _VP, _VP],
+    "msm_level": [_I, _I, _I, _VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _VP],
+    "msm_level_capacity": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    "msm_window_chunks": [_I, _I, _VP, _I, _I, _I, _VP, _VP],
     "msm_combine": [_I, _I, _VP, _I, _I, _VP, _VP],
-    "ec_fixed_base": [_I, _I, _VP, _VP, _LL, _VP, _VP],
+    "ec_fixed_base": [_I, _I, _VP, _VP, _LL, _VP, _VP, _VP],
     "fr_ntt_stage": [_I, _VP, _VP, _I, _I, _VP],
     "fr_mul": [_I, _VP, _VP, _I, _VP, _LL, _VP],
     "fr_quotient": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
@@ -173,7 +176,7 @@ POSEIDON = Kernel("poseidon_gl", "poseidon_gl",
                   "eigen_zkvm_tpu_torch/csrc/poseidon_gl.cu",
                   "eigen_zkvm_tpu/ops/poseidon_pallas.py:51, "
                   "eigen_zkvm_tpu/ops/poseidon_mxu.py:249")
-MSM = Kernel("msm", "msm_sum", "eigen_zkvm_tpu_torch/csrc/msm.cu",
+MSM = Kernel("msm", "msm_level", "eigen_zkvm_tpu_torch/csrc/msm.cu",
              "eigen_zkvm_tpu/ops/ec_jax.py::_msm_core (:154, with "
              "_tree_reduce :127)")
 EC_BATCH = Kernel("ec_batch", "ec_fixed_base",

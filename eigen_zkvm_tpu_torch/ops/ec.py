@@ -13,30 +13,36 @@ add-2007-bl addition, patched where a point is infinity, where P + P needs
 the doubling and where P + (-P) is infinity; the independent Fq products of
 a formula are taken in one batched product.
 
-The MSM is Pippenger's bucket method, the same stages on both routes:
-  1. glue (torch): each scalar's c-bit digits, one entry per nonzero digit of
-     a finite point, sorted by bucket (window, digit);
-  2. bucket sums: each run of one bucket cut into segments of at most
-     SEGMENT entries, one sum per segment, repeated on the partial sums until
-     each bucket has one (`sums`: csrc/msm.cu msm_sum, or `sums_plain`);
-     a hot bucket (the digit 1 of a circuit's many boolean wires) is split
-     like any other;
-  3. the buckets' weights without running sums: sum_d d * B_d =
-     sum_j 2^j * (sum of the B_d whose digit has bit j), so the same
-     segment sums over (window, bit) keys;
-  4. combine (`combine`: msm_combine, or `combine_plain`): per window
-     V_w = sum_j 2^j T_(w,j), then sum_w 2^(c*w) V_w by doubling, and the
-     result to affine.
+The MSM is Pippenger's bucket method with signed digits, the same stages on
+both routes:
+  1. entries (`entries`: csrc/msm.cu msm_digits, or `entries_plain`): each
+     scalar's signed c-bit digits (signed_digits), one entry per nonzero
+     digit of a finite point, keyed by bucket (window, |digit|) with the
+     point's index and the digit's sign; then sorted by key (torch.sort);
+  2. bucket sums (`level`: csrc/msm.cu msm_level, or `level_plain`): the
+     sorted entries cut into chunks (`first_chunk`), each chunk's runs
+     summed, a run that crosses a chunk boundary carried to a next level
+     of LEVEL_CHUNK partials (`sum_by_key`), so a hot bucket (the digit 1 of
+     a circuit's many boolean wires) is split like any other;
+  3. the buckets' weights by running sums (`window_chunks`:
+     msm_window_chunks, or `window_chunks_plain`): each window's buckets
+     cut into chunks, a chunk's running sum and weighted sum, the chunks of
+     a window summed by `sum_by_key`;
+  4. combine (`combine`: msm_combine, or `combine_plain`):
+     sum_w 2^(c w) V_w by Horner's rule, the result to affine.
 A CUDA tensor goes to the kernels (a failure raises kernels.KernelError);
 a CPU tensor to the plain versions.  The kernels are held against two plain
 versions: `msm_plain`, ec_jax's double-and-add, which shares none of these
 stages, and, at the prove's sizes, `msm_stages_plain`, the same glue with
-the plain versions of stages 2 and 4.  Windows above the highest nonzero
-digit are left out of stage 4.
+the plain versions of stages 1-4.  One host sync an MSM: the count of
+entries.  `msm(..., trace=[])` records CUDA events at the stage
+boundaries.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import time
 
 import torch
 
@@ -46,7 +52,6 @@ from . import bigint as bi
 from .bigint import FQ
 
 NBITS = 254          # Fr scalars fit 254 bits
-SEGMENT = 32         # entries a segment sum adds at the most
 TABLE_BITS = 8       # window of the plain fixed-base tables
 
 
@@ -254,17 +259,54 @@ def affine_ints(g: Group, t: torch.Tensor) -> list:
     return out
 
 
+# ---- stage trace ----
+
+def _mark(trace: list | None, label: str, device: torch.device, **info):
+    """Append a CUDA event (and the host clock) to `trace` at a stage
+    boundary, when the caller passed a list and the MSM runs on the card."""
+    if trace is not None and device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        trace.append((label, ev, time.perf_counter(), info))
+
+
+def stage_times(trace: list) -> list:
+    """[{stage, device_ms, host_ms, ...}] of an MSM's `trace`: the time
+    from the previous mark to this one on the card's stream and on the
+    host (synchronizes)."""
+    if not trace:
+        return []
+    torch.cuda.synchronize()
+    return [dict(stage=lab, device_ms=a[1].elapsed_time(ev),
+                 host_ms=(t - a[2]) * 1e3, **info)
+            for a, (lab, ev, t, info) in zip(trace, trace[1:])]
+
+
 # ---- Pippenger ----
+
+BUCKET_CHUNK = 64    # entries a thread of the first bucket level walks, at
+                     # the least
+LEVEL_CHUNK = 8      # partial sums a thread of a later level adds
+WINDOW_PARTS = 1024  # chunks of a window's buckets for the running sums
+
 
 def window_bits(n: int) -> int:
     """The digit width c of an MSM of n points."""
     return max(4, min(14, n.bit_length() - 7))
 
 
-def digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
-    """[n, 4] standard words -> [n, W] c-bit digits, W = ceil(254 / c)."""
+def n_windows(c: int) -> int:
+    """Windows of signed c-bit digits: c W >= 255 leaves the top window
+    room for the carry out of the one below (scalars < r < 2^254)."""
+    return -(-(NBITS + 1) // c)
+
+
+def digits(scalars: torch.Tensor, c: int, windows: int | None = None
+           ) -> torch.Tensor:
+    """[n, 4] standard words -> [n, W] unsigned c-bit digits, W = windows
+    or ceil(254 / c)."""
     cols = []
-    for w in range(-(-NBITS // c)):
+    for w in range(windows or -(-NBITS // c)):
         wi, sh = divmod(c * w, 64)
         d = scalars[:, wi] if sh == 0 else \
             (scalars[:, wi] >> sh) & ((1 << (64 - sh)) - 1)
@@ -274,154 +316,308 @@ def digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(cols, 1)
 
 
-def segments(keys: torch.Tensor, size: int = SEGMENT):
-    """Sorted keys -> (start [S + 1] of each segment: a run of one key cut
-    every `size` entries, key [S] of each segment)."""
-    n = keys.numel()
-    new = torch.ones(n, dtype=torch.bool, device=keys.device)
-    new[1:] = keys[1:] != keys[:-1]
-    run_start = torch.nonzero(new).squeeze(1)
-    pos = torch.arange(n, device=keys.device)
-    rank = pos - run_start[torch.cumsum(new, 0) - 1]
-    start = torch.nonzero(new | (rank % size == 0)).squeeze(1)
-    return (torch.cat([start, torch.tensor([n], device=keys.device)]),
-            keys[start])
+def signed_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """[n, 4] standard words below 2^254 -> [n, n_windows(c)] digits in
+    (-2^(c-1), 2^(c-1)] with sum_w d_w 2^(c w) = s: a digit above 2^(c-1)
+    becomes d - 2^c and carries one into the next window."""
+    raw = digits(scalars, c, n_windows(c))
+    half = 1 << (c - 1)
+    carry = torch.zeros_like(raw[:, 0])
+    cols = []
+    for w in range(raw.shape[1]):
+        d = raw[:, w] + carry
+        carry = (d > half).to(d.dtype)
+        cols.append(d - (carry << c))
+    return torch.stack(cols, 1)
 
 
 PLAIN_CHUNK = 1 << 20   # entries (or lanes) a plain batch holds at the most
 
 
-def sums_plain(g: Group, pts: torch.Tensor, affine: bool,
-               idx: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
-    """Plain version of msm_sum: out[s] = sum of pts[idx[j]] for j in
-    [start[s], start[s+1]), by pairwise rounds inside each segment, at most
-    PLAIN_CHUNK entries a batch.  Jacobian words [S, 3, ...]."""
+def _entry_points(g: Group, pts, refs, a: int, b: int):
+    """Entries a..b-1 of a level as Jacobian limb points: affine points
+    through refs (index << 1 | negative: (x, q - y)), else partials."""
+    if refs is None:
+        return from_jacobian(pts[a:b])
+    r = refs[a:b].long()
+    x, y, z = from_affine(g, pts[r >> 1])
+    return x, bi.select((r & 1).bool(), bi.neg(FQ, y), y), z
+
+
+def _segment_sums(g: Group, pts, refs, start: torch.Tensor, end: int
+                  ) -> torch.Tensor:
+    """Jacobian words [S]: segment s sums entries [start[s], start[s+1])
+    (start[S] = end) by pairwise rounds, at most PLAIN_CHUNK entries a
+    batch."""
     bounds = torch.searchsorted(
-        start, torch.arange(0, int(start[-1]), PLAIN_CHUNK,
-                            device=start.device)).tolist()
-    bounds = sorted(set(bounds) | {start.numel() - 1})
-    if len(bounds) < 2:
-        return torch.zeros((0, 3, *g.coord_shape), dtype=torch.int64,
-                           device=pts.device)
-    return torch.cat([
-        _sums_batch(g, pts, affine, idx[int(start[a]) : int(start[b])],
-                    start[a : b + 1] - start[a])
-        for a, b in zip(bounds[:-1], bounds[1:])])
+        start, torch.arange(0, end, PLAIN_CHUNK, device=start.device))
+    bounds = sorted(set(bounds.tolist()) | {start.numel()})
+    start = torch.cat([start, start.new_tensor([end])])
+    out = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        a, b = int(start[lo]), int(start[hi])
+        p = _entry_points(g, pts, refs, a, b)
+        rel = start[lo : hi + 1] - a
+        lens = rel.diff()
+        seg = torch.repeat_interleave(
+            torch.arange(lens.numel(), device=rel.device), lens)
+        rank = torch.arange(b - a, device=rel.device) - rel[:-1][seg]
+        length = lens[seg]
+        step = 1
+        while step < int(lens.max()):
+            act = torch.nonzero((rank % (2 * step) == 0)
+                                & (rank + step < length)).squeeze(1)
+            r = add(g, tuple(v[act] for v in p),
+                    tuple(v[act + step] for v in p))
+            for v, rv in zip(p, r):
+                v[act] = rv
+            step *= 2
+        out.append(jacobian_words(tuple(v[rel[:-1]] for v in p)))
+    return torch.cat(out)
 
 
-def _sums_batch(g, pts, affine, idx, start):
-    sel = pts[idx]
-    p = from_affine(g, sel) if affine else from_jacobian(sel)
-    lens = start.diff()
-    seg = torch.repeat_interleave(
-        torch.arange(lens.numel(), device=idx.device), lens)
-    rank = torch.arange(idx.numel(), device=idx.device) - start[:-1][seg]
-    length = lens[seg]
-    step = 1
-    while step < int(lens.max()):
-        act = torch.nonzero((rank % (2 * step) == 0)
-                            & (rank + step < length)).squeeze(1)
-        r = add(g, tuple(v[act] for v in p), tuple(v[act + step] for v in p))
-        for v, rv in zip(p, r):
-            v[act] = rv
-        step *= 2
-    return jacobian_words(tuple(v[start[:-1]] for v in p))
+def level_plain(g: Group, pts: torch.Tensor, refs, keys: torch.Tensor,
+                L: int, sums: torch.Tensor):
+    """Plain version of msm_level: the entries of sorted keys cut into
+    chunks of L; each run of one key inside a chunk is summed; a run that
+    is the whole of its key's run goes to sums[key] (unless infinity), the
+    run a chunk opens with, begun in the chunk before, to the chunk's head
+    slot, the run it closes with, going on into the next, to its tail slot.
+    Returns the carries (keys int32 [2C], Jacobian words [2C]) for C
+    chunks; an unused slot is infinity under the chunk's first or last
+    key."""
+    M = keys.numel()
+    dev = keys.device
+    C = -(-M // L)
+    pos = torch.arange(M, device=dev)
+    cut = pos % L == 0
+    cut[1:] |= keys[1:] != keys[:-1]
+    start = torch.nonzero(cut).squeeze(1)
+    last = torch.cat([start[1:], start.new_tensor([M])]) - 1
+    k = keys[start]
+    before = (start > 0) & (keys[(start - 1).clamp(min=0)] == k)
+    on = (last + 1 < M) & (keys[(last + 1).clamp(max=M - 1)] == k)
+    seg = _segment_sums(g, pts, refs, start, M)
+    chunk = start // L
+    first_of = torch.arange(C, device=dev) * L
+    ck = torch.stack([keys[first_of],
+                      keys[(first_of + L).clamp(max=M) - 1]], 1).view(-1)
+    cp = torch.zeros((2 * C, 3, *g.coord_shape), dtype=torch.int64,
+                     device=dev)
+    tail = ~before & on
+    cp[2 * chunk[before]] = seg[before]
+    cp[2 * chunk[tail] + 1] = seg[tail]
+    done = ~before & ~on & ~g.is_zero(seg[:, 2])
+    sums[k[done].long()] = seg[done]
+    return ck, cp
 
 
-def sums(g: Group, pts: torch.Tensor, affine: bool, idx: torch.Tensor,
-         start: torch.Tensor) -> torch.Tensor:
-    """Segment sums (stage 2): kernel 1's msm_sum for CUDA tensors."""
-    if pts.device.type == "cpu":
-        return sums_plain(g, pts, affine, idx, start)
-    return _sums_cuda(g, pts, affine, idx, start)
+def level(g: Group, pts: torch.Tensor, refs, keys: torch.Tensor, L: int,
+          sums: torch.Tensor):
+    """One level of the bucket sums (stage 2): kernel 1's msm_level for
+    CUDA tensors."""
+    if keys.device.type == "cpu":
+        return level_plain(g, pts, refs, keys, L, sums)
+    dev = keys.device
+    C = -(-keys.numel() // L)
+    ck = torch.empty(2 * C, dtype=torch.int32, device=dev)
+    cp = torch.empty((2 * C, 3, *g.coord_shape), dtype=torch.int64,
+                     device=dev)
+    kernels.MSM.launch(dev.index, g.code, int(refs is not None),
+                       pts.data_ptr(), kernels.pointer(refs), keys.data_ptr(),
+                       keys.numel(), L, sums.data_ptr(), ck.data_ptr(),
+                       cp.data_ptr(), stream=_stream(dev), entry="msm_level")
+    return ck, cp
 
 
-def _sums_cuda(g, pts, affine, idx, start):
-    n_seg = start.numel() - 1
-    out = torch.empty((n_seg, 3, *g.coord_shape), dtype=torch.int64,
-                      device=pts.device)
-    if n_seg:
-        kernels.MSM.launch(pts.device.index, g.code, int(affine),
-                           pts.data_ptr(), idx.data_ptr(), start.data_ptr(),
-                           n_seg, out.data_ptr(),
-                           stream=_stream(pts.device), entry="msm_sum")
-    return out
+@functools.lru_cache(maxsize=None)
+def _level_capacity(device_index: int, code: int) -> int:
+    threads = ctypes.c_int()
+    kernels.check("msm", kernels.library().msm_level_capacity(
+        device_index, code, ctypes.byref(threads)))
+    return threads.value
 
 
-def combine_plain(g: Group, planes: torch.Tensor, c: int) -> torch.Tensor:
-    """Plain version of msm_combine: planes [W * c, 3, ...] Jacobian words,
-    plane w*c + j the sum of the buckets of window w whose digit has bit
-    j -> the affine result [1, 2, ...]."""
-    W = planes.shape[0] // c
-    p = tuple(v.view(W, c, *v.shape[1:]) for v in from_jacobian(planes))
-    acc = tuple(v[:, c - 1] for v in p)
-    for j in range(c - 2, -1, -1):
-        acc = add(g, dbl(g, acc), tuple(v[:, j] for v in p))
-    res = tuple(v[W - 1 : W] for v in acc)
-    for w in range(W - 2, -1, -1):
-        for _ in range(c):
-            res = dbl(g, res)
-        res = add(g, res, tuple(v[w : w + 1] for v in acc))
-    return to_affine(g, res)
+def first_chunk(g: Group, keys: torch.Tensor) -> int:
+    """Affine entries a thread of the first level walks: BUCKET_CHUNK on
+    the CPU; on the card at least that, and as many as spread the entries
+    over the threads of msm_level it holds at once (one wave of equal
+    chunks; the plain version on a CUDA tensor cuts the same chunks)."""
+    if keys.device.type == "cpu":
+        return BUCKET_CHUNK
+    cap = _level_capacity(keys.device.index, g.code)
+    return max(BUCKET_CHUNK, -(-keys.numel() // cap))
 
 
-def combine(g: Group, planes: torch.Tensor, c: int) -> torch.Tensor:
-    """Stage 4: kernel 1's msm_combine for CUDA tensors."""
-    if planes.device.type == "cpu":
-        return combine_plain(g, planes, c)
-    return _combine_cuda(g, planes, c)
-
-
-def _combine_cuda(g, planes, c):
-    out = torch.empty((1, 2, *g.coord_shape), dtype=torch.int64,
-                      device=planes.device)
-    kernels.MSM.launch(planes.device.index, g.code, planes.data_ptr(), c,
-                       planes.shape[0] // c, out.data_ptr(),
-                       stream=_stream(planes.device), entry="msm_combine")
-    return out
-
-
-def _reduce_runs(g, sum_fn, pts, affine, idx, keys):
-    """Sum the entries of each key (sorted keys): segment sums, then sums of
-    the partial sums until every key has one.  (unique keys, Jacobian
-    words)."""
-    if keys.numel() == 0:
-        return keys, torch.zeros((0, 3, *g.coord_shape), dtype=torch.int64,
-                                 device=keys.device)
+def sum_by_key(g: Group, level_fn, pts: torch.Tensor, refs,
+               keys: torch.Tensor, n_out: int, trace=None) -> torch.Tensor:
+    """Jacobian words [n_out]: slot k the sum of the entries of key k
+    (sorted int32 keys; infinity for a key with none), level by level:
+    first_chunk affine entries or LEVEL_CHUNK partials a thread, then the
+    carries, until one chunk holds them all."""
+    if LEVEL_CHUNK < 4:     # two carries a chunk: fewer entries a level
+        raise ValueError(f"LEVEL_CHUNK {LEVEL_CHUNK} < 4")
+    sums = torch.zeros((n_out, 3, *g.coord_shape), dtype=torch.int64,
+                       device=keys.device)
+    L = first_chunk(g, keys) if refs is not None else LEVEL_CHUNK
     while True:
-        start, seg_keys = segments(keys)
-        pts = sum_fn(g, pts, affine, idx, start)
-        if bool((seg_keys[1:] != seg_keys[:-1]).all()):
-            return seg_keys, pts
-        affine, keys = False, seg_keys
-        idx = torch.arange(keys.numel(), device=keys.device)
+        ck, cp = level_fn(g, pts, refs, keys, L, sums)
+        _mark(trace, "msm_level", keys.device, entries=keys.numel(),
+              threads=ck.numel() // 2, affine=refs is not None)
+        if keys.numel() <= L:
+            return sums
+        pts, refs, keys, L = cp, None, ck, LEVEL_CHUNK
+
+
+def window_chunks_plain(g: Group, buckets: torch.Tensor, m: int, s: int,
+                        n_win: int) -> torch.Tensor:
+    """Plain version of msm_window_chunks, batched over every (window,
+    chunk): buckets [n_win * m] Jacobian words, bucket b of a window the
+    sum of its digit b + 1 -> [n_win * (m / s)]: chunk p's
+    sum_(b in [p s, p s + s)) (b + 1) B_b, by the kernel's running sums
+    S += B_b, T += S from the top and T + (p s) S."""
+    P = m // s
+    B = tuple(v.view(n_win * P, s, *v.shape[1:])
+              for v in from_jacobian(buckets))
+    S = tuple(torch.zeros_like(v[:, 0]) for v in B)
+    T = S
+    for b in range(s - 1, -1, -1):
+        S = add(g, S, tuple(v[:, b] for v in B))
+        T = add(g, T, S)
+    k = torch.arange(n_win * P, device=buckets.device) % P * s
+    R = tuple(torch.zeros_like(v) for v in S)
+    for bit in range(int(k.max()).bit_length() - 1, -1, -1):
+        R = dbl(g, R)
+        z = bi.select((k >> bit) & 1 == 1, S[2], torch.zeros_like(S[2]))
+        R = add(g, R, (S[0], S[1], z))
+    return jacobian_words(add(g, T, R))
+
+
+def window_chunks(g: Group, buckets: torch.Tensor, m: int, s: int,
+                  n_win: int) -> torch.Tensor:
+    """Stage 3's running sums: kernel 1's msm_window_chunks for CUDA
+    tensors."""
+    if buckets.device.type == "cpu":
+        return window_chunks_plain(g, buckets, m, s, n_win)
+    out = torch.empty((n_win * (m // s), 3, *g.coord_shape),
+                      dtype=torch.int64, device=buckets.device)
+    kernels.MSM.launch(buckets.device.index, g.code, buckets.data_ptr(), m, s,
+                       n_win, out.data_ptr(), stream=_stream(buckets.device),
+                       entry="msm_window_chunks")
+    return out
+
+
+def _jacobian_ints(g: Group, pts: torch.Tensor) -> list:
+    """Jacobian Montgomery words [n, 3, ...] -> Python Jacobian points in
+    standard form (the same projective points, curves/bn254.py's form)."""
+    v = [FQ.from_mont_int(x) for x in bi.to_ints(pts)]
+    if g.deg == 1:
+        return [tuple(v[i : i + 3]) for i in range(0, len(v), 3)]
+    return [tuple((v[j], v[j + 1]) for j in range(i, i + 6, 2))
+            for i in range(0, len(v), 6)]
+
+
+def combine_plain(g: Group, windows: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain version of msm_combine: sum_w 2^(c w) V_w over the window
+    sums [W] (Jacobian words) by Horner's rule, on Python ints
+    (curves/bn254.py).  The fold is a chain of c (W - 1) doublings of one
+    point, as in the kernel's one thread; as tensor code each doubling
+    would be a round of a few hundred operations on one element.  The
+    affine result [1, 2, ...]."""
+    if g.deg == 1:
+        dbl_, add_, to_, res = (bn254.g1_double, bn254.g1_add,
+                                bn254.g1_to_affine, bn254.G1_ZERO)
+    else:
+        dbl_, add_, to_, res = (bn254.g2_double, bn254.g2_add,
+                                bn254.g2_to_affine, bn254.G2_ZERO)
+    for p in reversed(_jacobian_ints(g, windows)):
+        for _ in range(c):
+            res = dbl_(res)
+        res = add_(res, p)
+    return affine_tensor(g, [to_(res)], windows.device)
+
+
+def combine(g: Group, windows: torch.Tensor, c: int) -> torch.Tensor:
+    """Stage 4: kernel 1's msm_combine for CUDA tensors."""
+    if windows.device.type == "cpu":
+        return combine_plain(g, windows, c)
+    out = torch.empty((1, 2, *g.coord_shape), dtype=torch.int64,
+                      device=windows.device)
+    kernels.MSM.launch(windows.device.index, g.code, windows.data_ptr(), c,
+                       windows.shape[0], out.data_ptr(),
+                       stream=_stream(windows.device), entry="msm_combine")
+    return out
+
+
+def entries_plain(points: torch.Tensor, scalars: torch.Tensor, c: int):
+    """Plain version of msm_digits: one entry per nonzero signed digit of a
+    finite point, (keys, refs) int32 [M]: key w 2^(c-1) + |d| - 1 (window
+    w's bucket of |d|), ref the point's index << 1 | (d < 0)."""
+    d = signed_digits(scalars, c)
+    W = d.shape[1]
+    live = ~(points.flatten(1) == 0).all(1)
+    ent = torch.nonzero(((d != 0) & live.unsqueeze(1)).view(-1)).squeeze(1)
+    dv = d.view(-1)[ent]
+    keys = (ent % W * (1 << (c - 1)) + dv.abs() - 1).to(torch.int32)
+    refs = (ent // W * 2 + (dv < 0).long()).to(torch.int32)
+    return keys, refs
+
+
+def entries(points: torch.Tensor, scalars: torch.Tensor, c: int):
+    """Stage 1: kernel 1's msm_digits for CUDA tensors (entries in the
+    order its warps reserve them); the count is read back, the MSM's one
+    host sync."""
+    if points.device.type == "cpu":
+        return entries_plain(points, scalars, c)
+    dev = points.device
+    n, W = points.shape[0], n_windows(c)
+    keys = torch.empty(n * W, dtype=torch.int32, device=dev)
+    refs = torch.empty(n * W, dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    kernels.MSM.launch(dev.index, points.data_ptr(), points[0].numel(),
+                       scalars.data_ptr(), n, c, W, keys.data_ptr(),
+                       refs.data_ptr(), count.data_ptr(), stream=_stream(dev),
+                       entry="msm_digits")
+    M = int(count)
+    return keys[:M], refs[:M]
+
+
+KERNEL_STAGES = (entries, level, window_chunks, combine)
+PLAIN_STAGES = (entries_plain, level_plain, window_chunks_plain,
+                combine_plain)
 
 
 def _pippenger(g: Group, points: torch.Tensor, scalars: torch.Tensor,
-               sum_fn, combine_fn) -> torch.Tensor:
+               stages, trace=None) -> torch.Tensor:
+    entries_fn, level_fn, chunks_fn, combine_fn = stages
     n = points.shape[0]
     dev = points.device
+    if n >= 1 << 30:
+        raise ValueError(f"msm of {n} points: refs are int32")
     c = window_bits(n)
-    d = digits(scalars, c)
-    inf = (points.flatten(1) == 0).all(1)
-    ent = torch.nonzero((d != 0) & ~inf.unsqueeze(1))
-    if ent.shape[0] == 0:   # every scalar zero or every point infinity
+    m = 1 << (c - 1)        # buckets a window: |digit| in 1..2^(c-1)
+    W = n_windows(c)
+    _mark(trace, "start", dev)
+    keys, refs = entries_fn(points, scalars, c)
+    _mark(trace, "entries (sync)", dev, entries=keys.numel())
+    if keys.numel() == 0:   # every scalar zero or every point infinity
         return torch.zeros((1, 2, *g.coord_shape), dtype=torch.int64,
                            device=dev)
-    keys = ent[:, 1] * (1 << c) + d[ent[:, 0], ent[:, 1]]
     keys, order = torch.sort(keys)
-    bkeys, buckets = _reduce_runs(g, sum_fn, points, True, ent[order, 0], keys)
-    # (window, bit) entries of each bucket
-    bits = (bkeys.unsqueeze(1) >> torch.arange(c, device=dev)) & 1
-    be = torch.nonzero(bits)
-    pkeys = (bkeys[be[:, 0]] >> c) * c + be[:, 1]
-    pkeys, order = torch.sort(pkeys)
-    pk, psums = _reduce_runs(g, sum_fn, buckets, False, be[order, 0], pkeys)
-    # windows above the highest nonzero digit are left out of the combine
-    planes = torch.zeros((int(pk[-1]) // c * c + c, 3, *g.coord_shape),
-                         dtype=torch.int64, device=dev)
-    planes[pk] = psums
-    return combine_fn(g, planes, c)
+    refs = refs[order]
+    del order
+    _mark(trace, "sort", dev)
+    buckets = sum_by_key(g, level_fn, points, refs, keys, W * m, trace)
+    del keys, refs
+    s = max(1, m // WINDOW_PARTS)   # buckets a thread of the running sums
+    parts = chunks_fn(g, buckets, m, s, W)
+    _mark(trace, "msm_window_chunks", dev, threads=parts.shape[0])
+    wkeys = torch.arange(W, dtype=torch.int32, device=dev).repeat_interleave(
+        m // s)
+    windows = sum_by_key(g, level_fn, parts, None, wkeys, W, trace)
+    out = combine_fn(g, windows, c)
+    _mark(trace, "msm_combine", dev, windows=W)
+    return out
 
 
 def _check_msm(g: Group, points: torch.Tensor, scalars: torch.Tensor):
@@ -436,28 +632,30 @@ def _check_msm(g: Group, points: torch.Tensor, scalars: torch.Tensor):
     return points.contiguous(), scalars.contiguous()
 
 
-def msm(g: Group, points: torch.Tensor, scalars: torch.Tensor
-        ) -> torch.Tensor:
+def msm(g: Group, points: torch.Tensor, scalars: torch.Tensor,
+        trace: list | None = None) -> torch.Tensor:
     """sum_i scalars[i] * points[i]: points affine Montgomery words, scalars
-    standard words below r.  Returns affine words [1, 2, ...]."""
+    standard words below r.  Returns affine words [1, 2, ...].  With a
+    `trace` list, CUDA events at the stage boundaries go into it
+    (`stage_times` reads them)."""
     points, scalars = _check_msm(g, points, scalars)
     if points.shape[0] == 0:
         return torch.zeros((1, 2, *g.coord_shape), dtype=torch.int64,
                            device=points.device)
-    return _pippenger(g, points, scalars, sums, combine)
+    return _pippenger(g, points, scalars, KERNEL_STAGES, trace)
 
 
 def msm_stages_plain(g: Group, points: torch.Tensor, scalars: torch.Tensor
                      ) -> torch.Tensor:
     """The MSM through the same glue with kernel 1's plain versions
-    (sums_plain, combine_plain) on any device: what a CUDA tensor's
-    kernels are held against at sizes where msm_plain's double-and-add
-    takes too long.  Affine words [1, 2, ...]."""
+    (PLAIN_STAGES) on any device: what
+    a CUDA tensor's kernels are held against at sizes where msm_plain's
+    double-and-add takes too long.  Affine words [1, 2, ...]."""
     points, scalars = _check_msm(g, points, scalars)
     if points.shape[0] == 0:
         return torch.zeros((1, 2, *g.coord_shape), dtype=torch.int64,
                            device=points.device)
-    return _pippenger(g, points, scalars, sums_plain, combine_plain)
+    return _pippenger(g, points, scalars, PLAIN_STAGES)
 
 
 def msm_plain(g: Group, points: torch.Tensor, scalars: torch.Tensor
@@ -552,9 +750,11 @@ def _scalar_mul_batch_cuda(g, base, scalars):
     out = torch.empty((n, 2, *g.coord_shape), dtype=torch.int64,
                       device=scalars.device)
     if n:
-        b = affine_tensor(g, [base], scalars.device)
-        kernels.EC_BATCH.launch(scalars.device.index, g.code, b.data_ptr(),
+        tab = _table(g, base, scalars.device)
+        scratch = torch.empty_like(out)   # Z and the prefix products
+        kernels.EC_BATCH.launch(scalars.device.index, g.code, tab.data_ptr(),
                                 scalars.data_ptr(), n, out.data_ptr(),
+                                scratch.data_ptr(),
                                 stream=_stream(scalars.device))
     return out
 

@@ -205,6 +205,104 @@ def test_msm_kernel_matches_plain_and_python(cuda, g, n):
         assert ec.affine_ints(g, got)[0] == want
 
 
+def _signed_digit_scalars(c: int, count: int, seed: int) -> list:
+    """Scalars whose digits sit at +2^(c-1) and carry (2^(c-1) + 1), 1,
+    r - 1, 2^253, then random ones."""
+    import random
+
+    rng = random.Random(seed)
+    half, W = 1 << (c - 1), ec.n_windows(c)
+    return [1, jbn.R - 1, 1 << 253, (1 << 253) | (1 << 252),
+            sum(half << (c * w) for w in range(W - 1)) % (1 << 253),
+            sum((half + 1) << (c * w) for w in range(W - 1)) % (1 << 253)
+            ] + [rng.randrange(jbn.R) for _ in range(count - 6)]
+
+
+@pytest.mark.parametrize("c", [2, 4, 10, 14])
+def test_msm_digits_kernel_matches_plain(cuda, c):
+    """msm_digits' entries, as sorted (key, ref) pairs, equal
+    entries_plain's: infinity points left out, digits at +-2^(c-1), the
+    carry into the window above bit 253 at c = 2."""
+    ks = _signed_digit_scalars(c, 3000, c)
+    pts = _bn254_points(ec.G1, len(ks), 5, cuda)
+    pts[7] = 0
+    S = bi.to_tensor(ks, cuda)
+
+    def pairs(k, r):
+        return torch.sort(k.long() * (1 << 32) + r.long()).values.cpu()
+
+    got = ec.entries(pts, S, c)
+    want = ec.entries_plain(pts, S, c)
+    assert torch.equal(pairs(*got), pairs(*want))
+
+
+@pytest.mark.parametrize("g", [ec.G1, ec.G2], ids=["G1", "G2"])
+def test_msm_level_kernel_matches_plain(cuda, g, monkeypatch):
+    """msm_level's bucket sums and carries against level_plain's, as
+    affine points, over small chunks: a hot key over many chunks, keys
+    with one entry, a point twice, P + (-P)."""
+    import random
+
+    rng = random.Random(9)
+    pts = _bn254_points(g, 64, 9, cuda)
+    ents = sorted([(1, i % 64, i % 3 == 0) for i in range(300)]
+                  + [(0, 5, False), (0, 5, False), (2, 7, False),
+                     (2, 7, True)]
+                  + [(rng.randrange(3, 40), rng.randrange(64),
+                      rng.random() < 0.5) for _ in range(200)])
+    keys = torch.tensor([k for k, _, _ in ents], dtype=torch.int32,
+                        device=cuda)
+    refs = torch.tensor([2 * i + n for _, i, n in ents], dtype=torch.int32,
+                        device=cuda)
+
+    def affine(t):
+        return ec.affine_ints(g, ec.to_affine(g, ec.from_jacobian(t)))
+
+    monkeypatch.setattr(ec, "LEVEL_CHUNK", 4)
+    for L in (5, 64):
+        got_sums = torch.zeros((40, 3, *g.coord_shape), dtype=torch.int64,
+                               device=cuda)
+        want_sums = torch.zeros_like(got_sums)
+        gk, gp = ec.level(g, pts, refs, keys, L, got_sums)
+        wk, wp = ec.level_plain(g, pts, refs, keys, L, want_sums)
+        _equal(gk, wk)
+        assert affine(gp) == affine(wp)
+        assert affine(got_sums) == affine(want_sums)
+        assert affine(ec.sum_by_key(g, ec.level, pts, refs, keys, 40)) == \
+            affine(ec.sum_by_key(g, ec.level_plain, pts, refs, keys, 40))
+
+
+@pytest.mark.parametrize("g", [ec.G1, ec.G2], ids=["G1", "G2"])
+def test_msm_with_signed_digit_edges_matches_double_and_add(cuda, g):
+    """The MSM (every kernel 1 stage) on scalars whose digits sit at
+    +-2^(c-1) and carry, against ec_jax's double-and-add."""
+    ks = _signed_digit_scalars(ec.window_bits(2048), 2048, 3)
+    pts = _bn254_points(g, len(ks), 4, cuda)
+    pts[9] = pts[8]
+    S = bi.to_tensor(ks, cuda)
+    _equal(ec.msm(g, pts, S), ec.msm_plain(g, pts, S))
+    _equal(ec.msm(g, pts, S), ec.msm_stages_plain(g, pts, S))
+
+
+def test_fixed_base_kernel_zero_lanes_among_one_threads_lanes(cuda):
+    """More lanes than threads, so each thread's batch inversion spans
+    several lanes, with zero scalars among them (every third lane and a
+    run of 1000)."""
+    import random
+
+    rng = random.Random(6)
+    n = 400_000
+    ks = torch.randint(-2**63, 2**63 - 1, (n, 4), dtype=torch.int64,
+                       device=cuda)
+    ks[:, 3] &= (1 << 61) - 1
+    ks[::3] = 0
+    ks[5000:6000] = 0
+    ks[:3] = bi.to_tensor([1, jbn.R - 1, rng.randrange(jbn.R)], cuda)
+    got = ec.scalar_mul_batch(ec.G1, ec.generator(ec.G1), ks)
+    _equal(got, ec.scalar_mul_batch_plain(ec.G1, ec.generator(ec.G1), ks))
+    assert bool((got[3::3] == 0).all())
+
+
 @pytest.mark.parametrize("g", [ec.G1, ec.G2], ids=["G1", "G2"])
 def test_fixed_base_kernel_matches_plain(cuda, g):
     import random
