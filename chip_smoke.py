@@ -25,8 +25,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               scalars 0, 1 and r - 1, a hot bucket and signed digits at
               +-2^(c-1) with carries; the fixed-base batch
               (csrc/ec_batch.cu) at 2^16 lanes in G1 and G2; the Fr NTT
-              (csrc/fr_ntt.cu) at 2^21 and 2^16, and at 2^21 its pointwise
-              products (by a table, by a constant, the quotient).
+              (csrc/fr_ntt.cu, two or three passes a transform) forward and
+              inverse at 2^21, 2^16 and 2^22 against the radix-2 ladder
+              of ntt_plain, and at 2^21 the coset round trip (to_coset,
+              from_coset: the scales ride on the inverse transforms' last
+              passes) and its pointwise products (by a constant, the
+              quotient).
   4. prove    the chain AIR of scripts/bench_big.py at 2^20 rows x 8 columns
               (blowup 2, 8 queries), written to files and proved through the
               port's file-based stark_prove on the card, device-resident
@@ -92,8 +96,9 @@ import time
 NBITS, WIDTH, QUERIES = 20, 8, 8
 G16_CONSTRAINTS, G16_SEED = (1 << 21) - 3, 1
 # phase 3's shapes: the MSM's and fixed-base batch's edge cases, the Fr
-# transforms (the prove's size first)
-G16_CHECK_N, G16_CHECK_NTT_BITS = 1 << 16, (21, 16)
+# transforms (the prove's size first, then 2^16 and the 2^22 domain of the
+# 2,177,591-constraint circuit)
+G16_CHECK_N, G16_CHECK_NTT_BITS = 1 << 16, (21, 16, 22)
 # sha256 of the proof JSON that eigen_zkvm_tpu's host engine writes for this
 # chain AIR (its file-based stark_prove, from the files that
 # bench_chain.write_chain_files writes).  The CUDA test
@@ -364,8 +369,9 @@ def _random_scalars(dev, n: int, seed: int):
 
 def _check_groth16_kernels(dev, rng) -> dict:
     """Phase 3, second half: K1 and K2 at 2^16 with edge inputs (K1
-    against ec_jax's double-and-add), K3 at the prove's 2^21 and at 2^16;
-    phase 5 holds K1, K2 and K4 at the prove's and setup's own shapes.
+    against ec_jax's double-and-add), K3 at the prove's 2^21, at 2^16 and
+    at 2^22; phase 5 holds K1, K2 and K4 at the prove's and setup's own
+    shapes.
     {kernel name: cases}."""
     import random
 
@@ -421,9 +427,10 @@ def _check_groth16_kernels(dev, rng) -> dict:
             n * (32 + 64 * g.deg) + 64 * g.deg,
             _msm_products(pts, S, g.deg == 2) * IMAD_BN254))
 
-    # K3: the prove's transforms at 2^21 and 2^16; at 2^21 the pointwise
-    # products of to_coset / from_coset (a full table, one constant) and
-    # the quotient
+    # K3: the transforms at the prove's 2^21 (two passes), at 2^16 and at
+    # the 2,177,591-constraint circuit's 2^22 (other splits); at 2^21 the
+    # coset round trip (the scales on the inverse transforms' last passes),
+    # the Montgomery conversion's product by a constant and the quotient
     k3_cases = []
     for log_n in G16_CHECK_NTT_BITS:
         m = 1 << log_n
@@ -439,12 +446,13 @@ def _check_groth16_kernels(dev, rng) -> dict:
             64 * m, prods))
         if log_n != G16_CHECK_NTT_BITS[0]:
             continue
-        tab = fr_ntt.coset_scale(log_n, False, dev)
         k = fr_ntt.mont_const(fr_ntt.z_coset_inv(m), dev)
         k3_cases += [
-            _hold(f"fr mul 2^{log_n} by a table", lambda: fr_ntt.mul(x, tab),
-                  lambda: fr_ntt.mul_plain(x, tab), 10, 1, 3 * 32 * m,
-                  m * IMAD_BN254),
+            _hold(f"fr coset round trip 2^{log_n} (to_coset, from_coset)",
+                  lambda: fr_ntt.from_coset(fr_ntt.to_coset(x, log_n), log_n),
+                  lambda: fr_ntt.from_coset_plain(
+                      fr_ntt.to_coset_plain(x, log_n), log_n), 10, 1,
+                  64 * m, 3 * prods + 2 * m * IMAD_BN254),
             _hold(f"fr mul 2^{log_n} by a constant",
                   lambda: fr_ntt.mul(x, k), lambda: fr_ntt.mul_plain(x, k),
                   10, 1, 2 * 32 * m, m * IMAD_BN254),
@@ -583,10 +591,15 @@ def main() -> int:
     info = kernels.build(force=True)
     kernels.library()
     report["build_s"] = info["seconds"]
-    print(f"build: {info['seconds']:.2f} s (nvcc, sm_90a)")
+    print(f"build: {info['seconds']:.2f} s (nvcc, sm_90a, "
+          f"{len(info['compiled'])} sources)")
+    entry = ""
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.split('info    :')[-1].strip()}")
+        text = line.split("info    :")[-1].strip()
+        if "Compiling entry function" in text:
+            entry = text.split("'")[1] if "'" in text else text
+        elif "registers" in text or "spill" in text:
+            print(f"  ptxas: {entry[:72]}: {text}")
 
     # 3. the field primitives against Python integers, the measured IMAD
     # rate, the kernels against their plain versions

@@ -1,5 +1,6 @@
-"""Time the Groth16 prover's two elliptic-curve kernels of one tree of the
-port at the shapes of a Groth16 run, for comparing two trees in one call.
+"""Time the Groth16 prover's elliptic-curve kernels and its Fr transforms of
+one tree of the port at the shapes of a Groth16 run, for comparing two
+trees in one call.
 
     python eigen_zkvm_tpu_torch/bench_msm.py --root DIR [--constraints N]
         [--runs 3] [--reps 5]
@@ -10,9 +11,13 @@ bench_groth16's synthetic circuit, runs setup and `--runs` proves through
 groth16/api.py with the device drained at every `Prof` tick (the stage
 split of setup and of each prove), then times, with CUDA events over
 `--reps` launches after a warm-up: the MSM on the prove's A query (G1) and
-B2 query (G2) with the witness, and the fixed-base batch at setup's G1 and
-G2 lane counts on random scalars below 2^253, every fourth one 0.  The last
-line is one JSON object.
+B2 query (G2) with the witness, the fixed-base batch at setup's G1 and
+G2 lane counts on random scalars below 2^253, every fourth one 0, and the
+Fr transforms (K3) on random values: `fr_ntt.ntt` at 2^21, forward and
+inverse, and the prove's quotient chain at its domain (three
+`to_coset`, `quotient`, `from_coset`).  Each prove's K3 launches are in its
+`launches`.  Only names that every tree of the port has are used.  The
+last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ import json
 import os
 import sys
 import time
+
+NTT_BITS = 21   # the transform timed alone: the smoke circuit's domain
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -54,7 +61,7 @@ def main(argv=None) -> int:
     from eigen_zkvm_tpu_torch import kernels
     from eigen_zkvm_tpu_torch.groth16 import api
     from eigen_zkvm_tpu_torch.ops import bigint as bi
-    from eigen_zkvm_tpu_torch.ops import ec
+    from eigen_zkvm_tpu_torch.ops import ec, fr_ntt
     from eigen_zkvm_tpu_torch.utils.devices import card_line, cuda_device
     from eigen_zkvm_tpu_torch.utils.profiler import Prof
 
@@ -99,6 +106,7 @@ def main(argv=None) -> int:
     n1 = 3 + 2 * pk.n_vars + pk.l_query.shape[0] + pk.n_public + 1 \
         + pk.h_query.shape[0]
     n2 = 3 + pk.n_vars
+    m = pk.domain_size
     del pk, vk, wit
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -112,11 +120,34 @@ def main(argv=None) -> int:
         k2[label] = {"lanes": n, "ms": _time_ms(
             lambda: ec.scalar_mul_batch(g, base, S), 2)}
         del S
-    report.update(k1_ms=k1, k2=k2,
+
+    def fr_values(log_n):  # canonical: below 2^253 < r
+        x = torch.randint(-2**63, 2**63 - 1, (1 << log_n, 4),
+                          dtype=torch.int64, device=dev, generator=gen)
+        x[:, 3] &= (1 << 61) - 1
+        return x
+
+    x = fr_values(NTT_BITS)
+    k3 = {f"ntt_2^{NTT_BITS}_ms": _time_ms(
+              lambda: fr_ntt.ntt(x, NTT_BITS), 4 * args.reps),
+          f"intt_2^{NTT_BITS}_ms": _time_ms(
+              lambda: fr_ntt.ntt(x, NTT_BITS, inverse=True), 4 * args.reps)}
+    log_m = m.bit_length() - 1
+    abc = [fr_values(log_m) for _ in range(3)]
+    k = fr_ntt.mont_const(fr_ntt.z_coset_inv(m), dev)
+    k3[f"quotient_chain_2^{log_m}_ms"] = _time_ms(
+        lambda: fr_ntt.from_coset(fr_ntt.quotient(
+            *(fr_ntt.to_coset(v, log_m) for v in abc), k), log_m), args.reps)
+    del x, abc
+    report.update(k1_ms=k1, k2=k2, k3=k3,
+                  k3_launches_warm_prove=runs[-1]["launches"]["fr_ntt"],
                   peak_bytes=torch.cuda.max_memory_allocated(dev))
     print(f"K1 A {k1['A']:.3f} ms, B2 {k1['B2']:.3f} ms; K2 G2 "
           f"{k2['G2']['ms']:.3f} ms ({n2} lanes), G1 {k2['G1']['ms']:.3f} ms "
           f"({n1} lanes); setup {report['setup_s']:.3f} s", flush=True)
+    print("K3 " + ", ".join(f"{key} {ms:.4f}" for key, ms in k3.items())
+          + f"; K3 launches a warm prove {report['k3_launches_warm_prove']}",
+          flush=True)
     print(json.dumps(report))
     return 0
 

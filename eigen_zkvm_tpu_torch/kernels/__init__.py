@@ -1,9 +1,12 @@
 """Build, load and launch the port's CUDA kernels (`csrc/*.cu`).
 
-The sources compile with nvcc for sm_90a, one process per source, and link
-into one shared library with a plain C interface, in `eigen_zkvm_tpu_torch/_build/` (git-ignored), at first
-use: when a CUDA tensor first reaches a kernel.  A source newer than the
-library triggers a rebuild.  The library is loaded with ctypes; every pointer
+The sources compile with nvcc for sm_90a, one object a source, and link
+into one shared library with a plain C interface, in
+`eigen_zkvm_tpu_torch/_build/` (git-ignored), at first use: when a CUDA
+tensor first reaches a kernel.  Each object keeps the stamp of what it was
+built from (the source and the csrc headers it includes); a later build
+recompiles only the sources whose stamp changed, all at once, and relinks.
+The library is loaded with ctypes; every pointer
 and the stream go in as `c_void_p`, every C entry returns
 `cudaGetLastError()` after its launch, and a launch that does not return 0
 raises `KernelError` (a refused launch never runs, and a later synchronize
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import glob
+import hashlib
 import os
 import shutil
 import subprocess
@@ -50,48 +54,100 @@ def _nvcc() -> str:
                       "the CUDA toolkit is installed")
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
-        return True
-    newest = max(os.path.getmtime(p)
-                 for p in glob.glob(os.path.join(CSRC, "*.cu*")))
-    return os.path.getmtime(LIB_PATH) < newest
+def _local_includes(path: str) -> list[str]:
+    """The csrc headers a source names in `#include "..."` lines."""
+    with open(path) as f:
+        return [line.split('"')[1] for line in f
+                if line.lstrip().startswith("#include") and '"' in line]
 
 
-def build(force: bool = False) -> dict:
-    """Compile csrc/*.cu into LIB_PATH when it is missing or stale (or
-    `force`): one nvcc per source, all started together, then one link.
-    Returns {"seconds", "log"}; `log` holds ptxas's register and
-    shared-memory report."""
-    if not force and not _stale():
-        return {"seconds": 0.0, "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+def source_stamp(src: str, csrc: str = CSRC) -> str:
+    """sha256 of the nvcc flags, the source and every csrc header it
+    includes, directly or through another: what its object depends on."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [src], set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        todo += [os.path.join(csrc, name) for name in _local_includes(path)]
+    for path in sorted(seen):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()
+
+
+def _read(path: str) -> str | None:
+    try:
+        with open(path) as f:
+            return f.read()
+    except FileNotFoundError:
+        return None
+
+
+def _write(path: str, text: str):
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+def build(force: bool = False, csrc: str = CSRC, build_dir: str = BUILD_DIR,
+          nvcc: str | None = None) -> dict:
+    """Compile what is stale of csrc/*.cu, one object a source kept in
+    `build_dir`, and link them all into the library there.  A source is
+    stale when its object is missing or was built from other contents of
+    it or of a header it includes (`source_stamp`, kept beside the object),
+    so an edit of one .cu recompiles that one and an edit of a .cuh the
+    sources that include it; `force` recompiles all.  The nvcc jobs run
+    together, then one link.  Returns {"seconds", "compiled" (the sources'
+    names), "log"}; `log` holds ptxas's register and shared-memory report
+    of the compiled ones."""
+    srcs = sorted(glob.glob(os.path.join(csrc, "*.cu")))
+    stamps = {src: source_stamp(src, csrc) for src in srcs}
+
+    def obj(src):
+        return os.path.join(build_dir, os.path.basename(src) + ".o")
+
+    todo = [src for src in srcs
+            if force or not os.path.exists(obj(src))
+            or _read(obj(src) + ".stamp") != stamps[src]]
+    lib = os.path.join(build_dir, os.path.basename(LIB_PATH))
+    lib_stamp = hashlib.sha256(" ".join(
+        stamps[src] for src in srcs).encode()).hexdigest()
+    if not todo and os.path.exists(lib) and \
+            _read(lib + ".stamp") == lib_stamp:
+        return {"seconds": 0.0, "compiled": [], "log": ""}
+    os.makedirs(build_dir, exist_ok=True)
+    nvcc = nvcc or _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
-        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}."
-                                      f"{os.getpid()}.o")
-        jobs.append((src, obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+    for src in todo:
+        tmp = f"{obj(src)}.{os.getpid()}.tmp"
+        jobs.append((src, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     outputs = [p.communicate() for _, _, p in jobs]  # reap all before raising
     log = ""
-    for (src, _, p), (out, err) in zip(jobs, outputs):
+    for (src, tmp, p), (out, err) in zip(jobs, outputs):
         if p.returncode != 0:
             raise KernelError(f"nvcc failed on {src} ({p.returncode}):\n{err}")
         log += out + err
-    objs = [obj for _, obj, _ in jobs]
-    r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+    for src, tmp, _ in jobs:  # the object first: a stale stamp rebuilds
+        os.replace(tmp, obj(src))
+        _write(obj(src) + ".stamp", stamps[src])
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    r = subprocess.run([nvcc, "-shared", "-o", tmp, *map(obj, srcs)],
                        capture_output=True, text=True)
-    for obj in objs:
-        os.remove(obj)
     seconds = time.perf_counter() - t0
     if r.returncode != 0:
         raise KernelError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, LIB_PATH)  # atomic: a concurrent build never loads half a file
-    return {"seconds": seconds, "log": log + r.stdout + r.stderr}
+    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    _write(lib + ".stamp", lib_stamp)
+    return {"seconds": seconds,
+            "compiled": [os.path.basename(src) for src in todo],
+            "log": log + r.stdout + r.stderr}
 
 
 # every C entry of the library: its argument types (all return int)
@@ -109,7 +165,7 @@ SIGNATURES = {
     "msm_window_chunks": [_I, _I, _VP, _I, _I, _I, _VP, _VP],
     "msm_combine": [_I, _I, _VP, _I, _I, _VP, _VP],
     "ec_fixed_base": [_I, _I, _VP, _VP, _LL, _VP, _VP, _VP],
-    "fr_ntt_stage": [_I, _VP, _VP, _I, _I, _VP],
+    "fr_ntt_pass": [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "fr_mul": [_I, _VP, _VP, _I, _VP, _LL, _VP],
     "fr_quotient": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
     "r1cs_eval": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
@@ -182,7 +238,7 @@ MSM = Kernel("msm", "msm_level", "eigen_zkvm_tpu_torch/csrc/msm.cu",
 EC_BATCH = Kernel("ec_batch", "ec_fixed_base",
                   "eigen_zkvm_tpu_torch/csrc/ec_batch.cu",
                   "eigen_zkvm_tpu/groth16/groth16.py::_fixed_base_all (:221)")
-FR_NTT = Kernel("fr_ntt", "fr_ntt_stage",
+FR_NTT = Kernel("fr_ntt", "fr_ntt_pass",
                 "eigen_zkvm_tpu_torch/csrc/fr_ntt.cu",
                 "eigen_zkvm_tpu/groth16/groth16.py::_witness_h (:315; "
                 "_ntt/_intt :34-72)")

@@ -4,11 +4,16 @@ H = (A*B - C) / Z (kernel 3, csrc/fr_ntt.cu).
 Port of the transforms of eigen_zkvm_tpu/groth16/groth16.py (`_find_root`,
 `_ntt`, `_intt` and the coset steps of `_witness_h`) onto tensors.  Values
 are [n, 4] int64 words in Montgomery form (ops/bigint.py), natural order in
-and out.  A transform is a bit-reversal gather (torch) and log2(n) radix-2
-stages, one kernel launch a stage on a CUDA tensor (`stage`), the plain
-ladder on a CPU tensor (`stage_plain`).  The inverse transform's 1/n and
-the coset shift's powers are one table product after it (`mul`), and the
-pointwise quotient (a*b - c) * k is one more kernel (`quotient`).
+and out.  A transform of 2^L values is a four-step of `plan(L)` passes of
+at most TILE_BITS bits (two at 2^21 and 2^22, three up to 2^28): a pass
+runs the short transforms down the columns of a [2^b, 2^(L-b)] view, the
+four-step factor and a transposed store (`ntt_pass`: one kernel launch on
+a CUDA tensor, `pass_plain` on a CPU tensor).  No pass gathers its input in
+device memory.  The inverse transform's 1/n and the coset shift's powers
+ride on its last pass; the pointwise quotient (a*b - c) * k and the
+Montgomery conversions are one launch each (`quotient`, `mul`).
+`ntt_plain` (a bit-reversal gather and log2(n) radix-2 stages) is the
+reference the passes are held against.
 
 Twiddle and scale tables are built once per (size, device) on the device,
 by doubling with the plain product.
@@ -25,6 +30,7 @@ from .bigint import FR
 
 R = FR.modulus
 SHIFT = 5   # the coset shift of groth16._witness_h: any non-subgroup element
+TILE_BITS = 11   # rows of a pass's tile at most (csrc/fr_ntt.cu kMaxBits)
 
 
 def find_root(r: int, m: int) -> int:
@@ -101,12 +107,114 @@ def _check(x: torch.Tensor, n: int | None = None) -> torch.Tensor:
     return x.contiguous()
 
 
-# ---- stage (kernel 3's butterflies) ----
+# ---- passes (kernel 3's transforms) ----
+
+def plan(log_n: int, tile_bits: int = TILE_BITS) -> list[int]:
+    """The bits of each pass of a transform of 2^log_n values: as few
+    passes of at most `tile_bits` as cover log_n, as even as possible,
+    deepest first (2^21: 11, 10; 2^23: 8, 8, 7; 2^7 at 3: 3, 2, 2)."""
+    if not 1 <= tile_bits <= TILE_BITS:
+        raise ValueError(f"tile bits {tile_bits} outside 1..{TILE_BITS}")
+    passes = max(1, -(-log_n // tile_bits))
+    depth, deeper = divmod(log_n, passes)
+    return [depth + (p < deeper) for p in range(passes)]
+
+
+@functools.lru_cache(maxsize=16)
+def stage_twiddles(log_n: int, inverse: bool, device: torch.device
+                   ) -> torch.Tensor:
+    """A pass's stage twiddles: [h + j] = w_(2h)^j for j < h, h = 2^s,
+    s < min(log_n, TILE_BITS) ([0] = 1), w_(2h) the root of order 2h (or
+    its inverse), gathered from `twiddles(log_n, inverse)`."""
+    tw = twiddles(log_n, inverse, device)
+    n = 1 << log_n
+    return torch.cat([tw[:1]] + [tw[:: n >> (s + 1)][: 1 << s]
+                                 for s in range(min(log_n, TILE_BITS))])
+
+
+def pass_plain(x: torch.Tensor, log_n: int, lo: int, bits: int,
+               inverse: bool = False, post: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """Plain version of fr_ntt_pass: x viewed as [2^bits, 2^(log_n - bits)]
+    row-major, a length-2^bits transform down each column (rows
+    bit-reversed, radix-2 decimation-in-time stages with the twiddles of
+    `stage_twiddles`), value (r, c) times the four-step factor
+    w^((g r) 2^lo), g = c >> lo, then stored to
+    out[(g 2^bits + r) 2^lo + (c mod 2^lo)]; `post` (the last pass only,
+    lo + bits = log_n) scales the natural-order output."""
+    n, rows = 1 << log_n, 1 << bits
+    width = n >> bits
+    dev = x.device
+    st = bi.limbs(stage_twiddles(log_n, inverse, dev))
+    y = bi.limbs(x).view(rows, width, bi.NLIMB)[bit_reverse(bits, dev)]
+    for s in range(bits):
+        h = 1 << s
+        b = y.view(rows // (2 * h), 2, h, width, bi.NLIMB)
+        t = bi.mul(FR, b[:, 1], st[h : 2 * h, None].expand_as(b[:, 1]))
+        u = b[:, 0]
+        y = torch.stack([bi.add(FR, u, t), bi.sub(FR, u, t)], 1).view(
+            rows, width, bi.NLIMB)
+    if lo + bits < log_n:  # the four-step factor
+        g = torch.arange(width, device=dev) >> lo
+        e = (torch.arange(rows, device=dev)[:, None] * g) << lo
+        tw = bi.limbs(twiddles(log_n, inverse, dev))
+        f = bi.mul(FR, y, tw[e & (n // 2 - 1)])
+        y = bi.select(e >= n // 2, bi.neg(FR, f), f)
+    if post is not None:
+        y = bi.mul(FR, y, bi.limbs(post).view(rows, width, bi.NLIMB))
+    return bi.words(y).view(rows, width >> lo, 1 << lo, 4).transpose(
+        0, 1).reshape(n, 4)
+
+
+def ntt_pass(x: torch.Tensor, log_n: int, lo: int, bits: int,
+             inverse: bool = False, post: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """One pass (`pass_plain`) into a new tensor: the kernel on a CUDA
+    tensor."""
+    if x.device.type == "cpu":
+        return pass_plain(x, log_n, lo, bits, inverse, post)
+    return _pass_cuda(x, log_n, lo, bits, inverse, post)
+
+
+def _pass_cuda(x, log_n, lo, bits, inverse, post):
+    tw = twiddles(log_n, inverse, x.device)
+    st = stage_twiddles(log_n, inverse, x.device)
+    if any(t.data_ptr() % 16 for t in (x, tw, st) + (
+            () if post is None else (post,))):
+        raise ValueError("fr_ntt_pass needs 16-byte aligned tensors")
+    out = torch.empty_like(x)
+    kernels.FR_NTT.launch(x.device.index, x.data_ptr(), out.data_ptr(),
+                          tw.data_ptr(), st.data_ptr(),
+                          kernels.pointer(post), log_n, lo, bits,
+                          stream=_stream(x.device))
+    return out
+
+
+def _transform(x: torch.Tensor, log_n: int, inverse: bool,
+               post: torch.Tensor | None = None,
+               tile_bits: int = TILE_BITS) -> torch.Tensor:
+    """The passes of `plan(log_n, tile_bits)`, `post` on the last."""
+    x = _check(x, 1 << log_n)
+    lo = 0
+    for bits in plan(log_n, tile_bits):
+        last = lo + bits == log_n
+        x = ntt_pass(x, log_n, lo, bits, inverse, post if last else None)
+        lo += bits
+    return x
+
+
+def ntt(x: torch.Tensor, log_n: int, inverse: bool = False, *,
+        tile_bits: int = TILE_BITS) -> torch.Tensor:
+    """Natural-order NTT of [2^log_n, 4] Montgomery words with the root of
+    order n (inverse: its inverse, no 1/n scale), as passes of at most
+    `tile_bits`; x is left as it was."""
+    return _transform(x, log_n, inverse, tile_bits=tile_bits)
+
 
 def stage_plain(x: torch.Tensor, tw: torch.Tensor, log_n: int,
                 s: int) -> torch.Tensor:
-    """Plain version of fr_ntt_stage: radix-2 stage s (half = 2^s) on a
-    bit-reversed buffer, groth16._ntt's inner loop: u, v*w^(j n/2h)."""
+    """Radix-2 stage s (half = 2^s) on a bit-reversed buffer, groth16._ntt's
+    inner loop: u, v*w^(j n/2h)."""
     n, h = 1 << log_n, 1 << s
     b = bi.limbs(x).view(n // (2 * h), 2, h, bi.NLIMB)
     w = bi.limbs(tw[:: n // (2 * h)][:h])
@@ -116,41 +224,17 @@ def stage_plain(x: torch.Tensor, tw: torch.Tensor, log_n: int,
                                 1)).view(n, 4)
 
 
-def stage(x: torch.Tensor, tw: torch.Tensor, log_n: int, s: int
-          ) -> torch.Tensor:
-    """One radix-2 stage, in place on a CUDA tensor."""
-    if x.device.type == "cpu":
-        return stage_plain(x, tw, log_n, s)
-    return _stage_cuda(x, tw, log_n, s)
-
-
-def _stage_cuda(x, tw, log_n, s):
-    kernels.FR_NTT.launch(x.device.index, x.data_ptr(), tw.data_ptr(),
-                          log_n, s, stream=_stream(x.device),
-                          entry="fr_ntt_stage")
-    return x
-
-
-def _transform(x: torch.Tensor, log_n: int, inverse: bool,
-               stage_fn) -> torch.Tensor:
+def ntt_plain(x: torch.Tensor, log_n: int, inverse: bool = False
+              ) -> torch.Tensor:
+    """The reference ladder, independent of the passes: a bit-reversal
+    gather and log_n radix-2 stages (`stage_plain`) over the whole
+    vector."""
     x = _check(x, 1 << log_n)
     tw = twiddles(log_n, inverse, x.device)
     y = x[bit_reverse(log_n, x.device)]
     for s in range(log_n):
-        y = stage_fn(y, tw, log_n, s)
+        y = stage_plain(y, tw, log_n, s)
     return y
-
-
-def ntt(x: torch.Tensor, log_n: int, inverse: bool = False
-        ) -> torch.Tensor:
-    """Natural-order NTT of [2^log_n, 4] Montgomery words with the root of
-    order n (inverse: its inverse, no 1/n scale)."""
-    return _transform(x, log_n, inverse, stage)
-
-
-def ntt_plain(x: torch.Tensor, log_n: int, inverse: bool = False
-              ) -> torch.Tensor:
-    return _transform(x, log_n, inverse, stage_plain)
 
 
 # ---- pointwise (kernel 3's product and quotient) ----
@@ -215,17 +299,32 @@ def from_mont(x: torch.Tensor) -> torch.Tensor:
 
 # ---- the coset steps of groth16._witness_h ----
 
-def to_coset(evals: torch.Tensor, log_n: int) -> torch.Tensor:
-    """Evaluations on the subgroup -> evaluations on SHIFT * subgroup."""
-    coeffs = mul(ntt(evals, log_n, inverse=True),
-                 coset_scale(log_n, False, evals.device))
-    return ntt(coeffs, log_n)
+def to_coset(evals: torch.Tensor, log_n: int, *,
+             tile_bits: int = TILE_BITS) -> torch.Tensor:
+    """Evaluations on the subgroup -> evaluations on SHIFT * subgroup: the
+    inverse transform with n^-1 SHIFT^i on its last pass, then the forward
+    one."""
+    coeffs = _transform(evals, log_n, True,
+                        coset_scale(log_n, False, evals.device), tile_bits)
+    return ntt(coeffs, log_n, tile_bits=tile_bits)
 
 
-def from_coset(evals: torch.Tensor, log_n: int) -> torch.Tensor:
-    """Evaluations on SHIFT * subgroup -> coefficients."""
-    return mul(ntt(evals, log_n, inverse=True),
-               coset_scale(log_n, True, evals.device))
+def from_coset(evals: torch.Tensor, log_n: int, *,
+               tile_bits: int = TILE_BITS) -> torch.Tensor:
+    """Evaluations on SHIFT * subgroup -> coefficients: the inverse
+    transform with n^-1 SHIFT^-i on its last pass."""
+    return _transform(evals, log_n, True,
+                      coset_scale(log_n, True, evals.device), tile_bits)
+
+
+def to_coset_plain(evals: torch.Tensor, log_n: int) -> torch.Tensor:
+    scale = coset_scale(log_n, False, evals.device)
+    return ntt_plain(mul_plain(ntt_plain(evals, log_n, True), scale), log_n)
+
+
+def from_coset_plain(evals: torch.Tensor, log_n: int) -> torch.Tensor:
+    scale = coset_scale(log_n, True, evals.device)
+    return mul_plain(ntt_plain(evals, log_n, True), scale)
 
 
 def z_coset_inv(m: int) -> int:

@@ -160,6 +160,49 @@ def test_quotient_transforms_match_groth16_ntt():
     assert ints(fr_ntt.from_coset(fr_ntt.to_coset(x, 6), 6)) == coeffs
 
 
+@pytest.mark.parametrize("tile_bits", [2, 3])
+@pytest.mark.parametrize("log_n", range(1, 10))
+def test_passes_match_groth16_ntt(tile_bits, log_n):
+    """The kernel's pass decomposition (`pass_plain` composed over
+    `plan(log_n, tile_bits)`: 1 to 5 passes, uneven splits) against the JAX
+    package's _ntt / _intt and _witness_h's coset steps on Python ints,
+    word for word: forward, inverse, the coset transforms with the scale on
+    the inverse's last pass, the quotient and the way back."""
+    r, m = jbn.R, 1 << log_n
+    rng = random.Random(100 * tile_bits + log_n)
+    abc = [[rng.randrange(r) for _ in range(m)] for _ in range(3)]
+    w = jg._find_root(r, m)
+    x = [bi.mont_ints(bi.FR, v) for v in abc]
+
+    def ints(t):
+        return [bi.FR.from_mont_int(v) for v in bi.to_ints(t)]
+
+    assert len(fr_ntt.plan(log_n, tile_bits)) == -(-log_n // tile_bits)
+    assert ints(fr_ntt.ntt(x[0], log_n, tile_bits=tile_bits)) == \
+        jg._ntt(abc[0], w, r)
+    n_inv = pow(m, r - 2, r)
+    assert [v * n_inv % r for v in ints(fr_ntt.ntt(
+        x[0], log_n, inverse=True, tile_bits=tile_bits))] == \
+        jg._intt(abc[0], w, r)
+
+    def coset(vals):  # _witness_h's to_coset
+        coeffs = jg._intt(vals, w, r)
+        return jg._ntt([c * pow(5, i, r) % r for i, c in enumerate(coeffs)],
+                       w, r)
+
+    want = [coset(v) for v in abc]
+    got = [fr_ntt.to_coset(v, log_n, tile_bits=tile_bits) for v in x]
+    assert [ints(g) for g in got] == want
+    z_inv = fr_ntt.z_coset_inv(m)
+    k = fr_ntt.mont_const(z_inv, torch.device("cpu"))
+    hc = [(a * b - c) % r * z_inv % r for a, b, c in zip(*want)]
+    s_inv = pow(5, r - 2, r)
+    coeffs = [c * pow(s_inv, i, r) % r
+              for i, c in enumerate(jg._intt(hc, w, r))]
+    assert ints(fr_ntt.from_coset(fr_ntt.quotient(*got, k), log_n,
+                                  tile_bits=tile_bits)) == coeffs
+
+
 def test_r1cs_rows_match_python_sums():
     circ = bg.synthetic(200, 2, seed=9)
     assert bg.check(circ)

@@ -316,20 +316,62 @@ def test_fixed_base_kernel_matches_plain(cuda, g):
     _equal(got, ec.scalar_mul_batch_plain(g, ec.generator(g), S))
 
 
-@pytest.mark.parametrize("log_n", [1, 5, 12])
+@pytest.mark.parametrize("log_n", [1, 5, 12, 16, 21, 22, 23])
 def test_fr_ntt_kernel_matches_plain(cuda, log_n):
+    """The passes (one up to 2^11, two at 2^16-2^22, three at 2^23) against
+    the reference ladder; x is left as it was; one launch a pass."""
     import random
 
     rng = random.Random(log_n)
     x = bi.mont_ints(bi.FR, [rng.randrange(jbn.R) for _ in range(1 << log_n)],
                      cuda)
+    x0 = x.clone()
     for inverse in (False, True):
-        _equal(fr_ntt.ntt(x, log_n, inverse), fr_ntt.ntt_plain(x, log_n,
-                                                                inverse))
+        before = kernels.FR_NTT.launches
+        got = fr_ntt.ntt(x, log_n, inverse)
+        assert kernels.FR_NTT.launches == before + len(fr_ntt.plan(log_n))
+        _equal(got, fr_ntt.ntt_plain(x, log_n, inverse))
+    _equal(x, x0)
+    if log_n > 16:
+        return
     k = fr_ntt.mont_const(12345, cuda)
     _equal(fr_ntt.quotient(x, x, x, k), fr_ntt.quotient_plain(x, x, x, k))
     _equal(fr_ntt.mul(x, x), fr_ntt.mul_plain(x, x))
     _equal(fr_ntt.mul(x, k), fr_ntt.mul_plain(x, k))
+
+
+@pytest.mark.parametrize("log_n,tile_bits", [(0, 11), (7, 3), (9, 3), (9, 4),
+                                             (12, 5), (16, 6), (21, 7)])
+def test_fr_ntt_kernel_at_narrow_tiles_matches_plain(cuda, log_n, tile_bits):
+    """Passes of fewer bits than the kernel's 11: uneven splits, three to
+    five passes, tiles of many columns."""
+    import random
+
+    rng = random.Random(log_n + 100 * tile_bits)
+    x = bi.mont_ints(bi.FR, [rng.randrange(jbn.R) for _ in range(1 << log_n)],
+                     cuda)
+    for inverse in (False, True):
+        _equal(fr_ntt.ntt(x, log_n, inverse, tile_bits=tile_bits),
+               fr_ntt.ntt_plain(x, log_n, inverse))
+    _equal(fr_ntt.from_coset(x, log_n, tile_bits=tile_bits),
+           fr_ntt.from_coset_plain(x, log_n))
+
+
+@pytest.mark.parametrize("log_n", [1, 5, 16, 21])
+def test_fr_coset_kernels_match_plain(cuda, log_n):
+    """to_coset and from_coset (the scale on the inverse's last pass)
+    against the ladder and a separate product."""
+    import random
+
+    rng = random.Random(log_n)
+    x = bi.mont_ints(bi.FR, [rng.randrange(jbn.R) for _ in range(1 << log_n)],
+                     cuda)
+    before = kernels.FR_NTT.launches
+    y = fr_ntt.to_coset(x, log_n)
+    assert kernels.FR_NTT.launches == before + 2 * len(fr_ntt.plan(log_n))
+    _equal(y, fr_ntt.to_coset_plain(x, log_n))
+    _equal(fr_ntt.from_coset(y, log_n), fr_ntt.from_coset_plain(y, log_n))
+    _equal(fr_ntt.ntt(fr_ntt.from_coset(y, log_n), log_n), x)
 
 
 def test_r1cs_kernel_matches_plain(cuda):

@@ -235,6 +235,50 @@ def test_cuda_sources_include_only_their_own_headers():
     assert not bad, bad
 
 
+def test_kernel_build_recompiles_only_stale_sources(tmp_path):
+    """kernels.build on fake sources with a fake nvcc (no toolkit): an empty
+    build directory compiles every source; a rebuild compiles nothing; an
+    edit of one .cu recompiles that one, an edit of a header the sources
+    that include it (directly or through another header); `force` all; a
+    lost library relinks without compiling."""
+    from eigen_zkvm_tpu_torch import kernels
+
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    files = {"a.cu": '#include "h.cuh"\n#include <cstdint>\n',
+             "b.cu": "#include <cstdint>\n", "c.cu": '#include "g.cuh"\n',
+             "h.cuh": "// h\n", "g.cuh": '#include "h.cuh"\n'}
+    for name, text in files.items():
+        (csrc / name).write_text(text)
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\n"
+                    "a = sys.argv[1:]\n"
+                    "open(a[a.index('-o') + 1], 'w').write(' '.join(a))\n")
+    nvcc.chmod(0o755)
+
+    def build(force=False):
+        return kernels.build(force, str(csrc), str(out), str(nvcc))
+
+    assert build()["compiled"] == ["a.cu", "b.cu", "c.cu"]
+    lib = out / os.path.basename(kernels.LIB_PATH)
+    assert lib.exists()
+    assert build() == {"seconds": 0.0, "compiled": [], "log": ""}
+    (csrc / "b.cu").write_text("#include <cstdint>\n// edited\n")
+    assert build()["compiled"] == ["b.cu"]
+    (csrc / "h.cuh").write_text("// h, edited\n")
+    assert build()["compiled"] == ["a.cu", "c.cu"]
+    (csrc / "g.cuh").write_text('#include "h.cuh"\n// edited\n')
+    assert build()["compiled"] == ["c.cu"]
+    assert build()["compiled"] == []
+    assert build(force=True)["compiled"] == ["a.cu", "b.cu", "c.cu"]
+    lib.unlink()
+    assert build()["compiled"] == [] and lib.exists()
+    assert sorted(p.name for p in out.iterdir()) == sorted(
+        [lib.name, lib.name + ".stamp"]
+        + [f"{s}.o{x}" for s in ("a.cu", "b.cu", "c.cu")
+           for x in ("", ".stamp")])
+
+
 def test_engine_names_its_device():
     assert repr(Engine("cpu")) == "Engine(device=cpu, resident=True)"
     assert Engine(torch.device("cpu")).device == torch.device("cpu")
