@@ -52,9 +52,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
               2^21 points, c = 14, half the scalars boolean) against the
               plain versions of its stages (ops/ec.msm_stages_plain); the
               fixed-base batch at setup's lane counts (G2 whole, G1 checked
-              on one lane in 32); the R1CS rows (csrc/r1cs.cu) of the
-              circuit's three matrices.  These cases are the ones the
-              kernels' line reports.
+              on one lane in 32); the R1CS rows (csrc/r1cs.cu: the three
+              matrices in one launch, padded, the publics in A's tail) of
+              the circuit, then of bench_groth16.long_rows at 2^16 rows
+              (rows of 0 to 4,096 nonzeros, a warp for each long one).
+              These cases are the ones the kernels' line reports.
+  6. cli      the port's command line (eigen_zkvm_tpu_torch/cli.py) at
+              phase 5's width: the circuit written as a .r1cs file, its
+              witness as a .wtns file, phase 5's seeded key as the port's
+              key file; groth16_prove (its proof draws r and s from
+              `secrets`, so groth16_verify's OK holds it, not a digest),
+              groth16_verify and generate_verifier (the JAX package's
+              text) through cli.main on the card, each one's seconds and
+              the file loads'; groth16_setup, prove and verify of a
+              two-constraint circuit through the CLI.
+  7. args     the example AIRs with plookup, permutation and connection
+              arguments (eigen_zkvm_tpu_torch/examples/) at 2^5 and 2^16
+              rows, written to files and proved and verified through the
+              CLI's stark_prove and stark_verify on the card; each zkin's
+              sha256 must equal ARG_SHA256, the host engine's digest.
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -62,7 +78,8 @@ FRI fold's group iNTT; Poseidon at a Merkle level, a bare permutation and
 a fold tree's 96-wide leaves (the sponge calls that chain a capacity).
 Each path's kernels must launch in its own run (counts set to 0 just
 before it, read just after): the GL kernels in phase 4, the four Groth16
-kernels in phase 5.
+kernels in phase 5, K1, K3 and K4 in phase 6's prove, the GL kernels in
+each of phase 7's proves.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and the IMADs its function needs at the least
@@ -77,7 +94,9 @@ G2).  An MSM needs, at the least over c, one mixed addition for each
 nonzero c-bit digit of a finite point's scalar and 2^(c+1) a window for
 the bucket reduction; a fixed-base lane one for each nonzero 8-bit digit
 after its first, and 7 products for its affine result; a transform
-(m/2) log2 m products; the R1CS one product a nonzero.  No single PyTorch
+(m/2) log2 m products; the R1CS one product a nonzero whose coefficient
+is not +-1, with 4 bytes a row offset and a wire and 2 or 4 a coefficient
+index.  No single PyTorch
 call computes a Goldilocks NTT, a Poseidon permutation, a BN254 MSM or an
 Fr NTT, so `library_ms` is null.
 
@@ -114,6 +133,30 @@ HOST_PROOF_SHA256 = \
 # proves both packages at this size and holds both to this digest.
 GROTH16_HOST_SHA256 = \
     "0d7d09965b7893d2627396be998b577f2f85777eb156b3e273a1d5c94c2247a4"
+# Phase 7: the example AIRs with plookup, permutation and connection
+# arguments (eigen_zkvm_tpu_torch/examples/), at the CPU tests' 2^5 rows and
+# at 2^16, with bench_chain.chain_struct_json(nbits, ARG_QUERIES).  The
+# digests are the zkin JSON's sha256 that eigen_zkvm_tpu's host engine
+# (EIGEN_ZKVM_ENGINE=host, its in-memory StarkSetup and stark_gen) writes
+# for the JAX package's examples/ AIRs of the same sizes and struct;
+# tests/test_torch_cli.py proves the 2^5 ones through the port on the CPU.
+ARG_AIRS, ARG_NBITS, ARG_QUERIES = ("plookup", "permutation",
+                                    "connection"), (5, 16), 8
+ARG_SHA256 = {
+    ("plookup", 5):
+        "0a5b6c76510edec99b2972af096099d4bba190a7f9d2b7f58101c9913bbec8b1",
+    ("permutation", 5):
+        "7daab5b65d81b033544cb05eeb85211499515cfa36c3d8bf8989ba286225455c",
+    ("connection", 5):
+        "b39257935f24931da7aad8d4c9ea55691aac36b5ad0cc4126510104175cc864f",
+    ("plookup", 16):
+        "2202d7c19c7554a1193ec026aed1d93ca637c413b74f34c6fa4cadc868b8ea96",
+    ("permutation", 16):
+        "7e918c37e8aeeb162c249a07fbe680624ac0b0bc96411f647ad84a5400b8fc8a",
+    ("connection", 16):
+        "e241e92b373ff978ad24d7765151e5c370cf899ac4940f6c2ed72db3ec4eb297",
+}
+LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 # Fewest IMADs (IMAD.WIDE.U32, a 32x32->64-bit multiply-add) for one
@@ -464,6 +507,21 @@ def _check_groth16_kernels(dev, rng) -> dict:
             kernels.FR_NTT.name: k3_cases}
 
 
+def _r1cs_work(rows, wit, m: int) -> tuple:
+    """K4's bytes and IMADs: each row offset (4 bytes), wire (4) and
+    coefficient index (2 or 4) read once, the coefficient table and the
+    witness read once, the [3, m, 4] output written once; one Fr product
+    for each nonzero whose coefficient is not +-1 (table entries 0 and 1
+    are 1 and -1: an add or a subtract).  The kernel's own row order and
+    places (`Rows.dest`) are not the function's and are not counted."""
+    nbytes = (4 * rows.indptr.numel()
+              + rows.nnz * (4 + rows.cidx.element_size())
+              + 32 * (rows.coefs.shape[0] + wit.shape[0])
+              + 3 * m * 32)
+    products = int((rows.cidx >= 2).sum())
+    return nbytes, products * IMAD_BN254
+
+
 def _check_groth16_shapes(dev, circ, pk) -> dict:
     """Phase 5, after the run: K1 on the prove's own inputs (the A query
     in G1 and the B2 query in G2 with the witness) against the plain
@@ -508,25 +566,34 @@ def _check_groth16_shapes(dev, circ, pk) -> dict:
             _fixed_base_products(S, g.deg == 2) * IMAD_BN254, rows=rows))
         del S
 
-    mats = r1cs.build(circ.constraints, dev)
-    wit = fr_ntt.to_mont(bi.to_tensor(circ.w, dev))
+    # K4: the prove's one launch over the three matrices, then the
+    # long-row circuit (rows of 0 to 4,096 nonzeros: warps beside threads)
+    from eigen_zkvm_tpu_torch import bench_groth16
+
     k4_cases = []
-    for mat, label in zip(mats, "ABC"):
-        nnz = mat.wires.numel()
+    long = bench_groth16.long_rows(LONG_ROWS, G16_SEED)
+    for label, c, m, n_pub in (
+            ("the prove's", circ, pk.domain_size, pk.n_public + 1),
+            ("long-row circuit", long, LONG_ROWS + 5, 5)):
+        rows = r1cs.build(c.constraints, dev)
+        wit = fr_ntt.to_mont(bi.to_tensor([int(v) % bn254.R for v in c.w],
+                                          dev))
         k4_cases.append(_hold(
-            f"r1cs {label} {mat.rows} rows, {nnz} nonzeros",
-            lambda: r1cs.evaluate(mat, wit),
-            lambda: r1cs.evaluate_plain(mat, wit), 10, 1,
-            8 * (mat.rows + 1) + 16 * nnz + 32 * mat.coefs.shape[0]
-            + 32 * wit.shape[0] + 32 * mat.rows, nnz * IMAD_BN254))
+            f"r1cs {label} A, B, C: 3 x {rows.nc} rows, {rows.nnz} "
+            f"nonzeros ({3 * rows.nc - rows.n_short} rows on a warp), "
+            f"{rows.coefs.shape[0]} coefficients, domain {m}",
+            lambda: r1cs.evaluate(rows, wit, m, n_pub),
+            lambda: r1cs.evaluate_plain(rows, wit, m, n_pub), 20, 1,
+            *_r1cs_work(rows, wit, m)))
+        del rows, wit
     return {kernels.MSM.name: k1_cases, kernels.EC_BATCH.name: k2_cases,
             kernels.R1CS.name: k4_cases}
 
 
-def _groth16(dev, circ) -> dict:
+def _groth16(dev, circ) -> tuple:
     """Phase 5: setup, prove and verify through the api entry points, the
     kernels' counts set to 0 before setup and read after verify.  (numbers,
-    proving key)"""
+    proving key, verifying key)"""
     from eigen_zkvm_tpu_torch import bench_groth16 as bg
     from eigen_zkvm_tpu_torch import kernels
     from eigen_zkvm_tpu_torch.groth16 import api
@@ -558,7 +625,157 @@ def _groth16(dev, circ) -> dict:
                 verified=ok, launches=launches,
                 peak_bytes=torch.cuda.max_memory_allocated(dev),
                 domain=pk.domain_size, n_vars=circ.n_vars,
-                proof_sha256=hashlib.sha256(text).hexdigest()), pk
+                proof_sha256=hashlib.sha256(text).hexdigest()), pk, vk
+
+
+def write_arg_air(directory: str, name: str, nbits: int) -> dict:
+    """An example AIR of eigen_zkvm_tpu_torch/examples/ (trace seed 0) as
+    the files stark_prove reads: {"pil", "struct", "const", "cm"} -> path
+    (the PIL JSON with its plookup and permutation identities)."""
+    import importlib
+
+    from eigen_zkvm_tpu_torch import bench_chain
+
+    mod = importlib.import_module(f"eigen_zkvm_tpu_torch.examples.{name}")
+    pil, const_pols, make_trace = mod.build(nbits)
+    files = {k: os.path.join(directory, f"{name}.{k}")
+             for k in ("pil", "struct", "const", "cm")}
+    with open(files["pil"], "w") as f:
+        json.dump(bench_chain.pil_to_json(pil), f)
+    with open(files["struct"], "w") as f:
+        json.dump(bench_chain.chain_struct_json(nbits, ARG_QUERIES), f)
+    const_pols.save(files["const"])
+    make_trace().save(files["cm"])
+    return files
+
+
+def _cli_groth16(dev, circ, vk, pk) -> dict:
+    """Phase 6: phase 5's circuit as a .r1cs file and its witness as a
+    .wtns file, its seeded key as the port's key file, then groth16_prove,
+    groth16_verify and generate_verifier through cli.main on the card (the
+    prove's kernel counts set to 0 just before it); groth16_setup, prove
+    and verify of a two-constraint circuit (x * y = 35, x + y = 12) through
+    the CLI."""
+    import torch
+
+    from eigen_zkvm_tpu_torch import cli, kernels
+    from eigen_zkvm_tpu_torch.algebraic import r1cs_file, witness
+    from eigen_zkvm_tpu_torch.groth16 import api
+    from eigen_zkvm_tpu_torch.utils.profiler import Prof
+
+    def r1cs_of(constraints, n_vars, n_publics):
+        return r1cs_file.R1CS(
+            prime=circ.P, n_wires=n_vars, n_pub_out=0, n_pub_in=n_publics,
+            n_prv_in=n_vars - n_publics - 1, n_labels=n_vars,
+            constraints=constraints, wire_map=[])
+
+    out, rcs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        p = {k: os.path.join(tmp, k) for k in (
+            "circuit.r1cs", "witness.wtns", "pk.bin", "vk.json", "proof.json",
+            "public.json", "verifier.sol", "toy.r1cs", "toy.json", "toy.pk",
+            "toy.vk.json", "toy.proof.json", "toy.public.json")}
+        t0 = time.perf_counter()
+        r1cs_file.save_r1cs(p["circuit.r1cs"], r1cs_of(
+            circ.constraints, circ.n_vars, circ.n_publics))
+        t1 = time.perf_counter()
+        witness.save_witness(p["witness.wtns"], circ.w, circ.P)
+        t2 = time.perf_counter()
+        api.save_pk(p["pk.bin"], pk)
+        t3 = time.perf_counter()
+        with open(p["vk.json"], "w") as f:
+            f.write(api.vk_to_json(vk))
+        out.update(write_r1cs_s=t1 - t0, write_wtns_s=t2 - t1,
+                   save_pk_s=t3 - t2, bytes={k: os.path.getsize(p[k]) for k in
+                                             ("circuit.r1cs", "witness.wtns",
+                                              "pk.bin")})
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        prof = Prof("cli.groth16_prove", dev, on=True)
+        t0 = time.perf_counter()
+        rcs["groth16_prove"] = cli.main([
+            "groth16_prove", "--circuit", p["circuit.r1cs"], "--witness",
+            p["witness.wtns"], "--pk", p["pk.bin"], "--proof",
+            p["proof.json"], "--public_input", p["public.json"]], prof=prof)
+        torch.cuda.synchronize()
+        out.update(prove_s=time.perf_counter() - t0, stages=prof.stages,
+                   launches=kernels.counts())
+        t0 = time.perf_counter()
+        rcs["groth16_verify"] = cli.main([
+            "groth16_verify", "--vk", p["vk.json"], "--proof",
+            p["proof.json"], "--public_input", p["public.json"]])
+        t1 = time.perf_counter()
+        rcs["generate_verifier"] = cli.main([
+            "generate_verifier", "--vk", p["vk.json"], "--sol",
+            p["verifier.sol"]])
+        out.update(verify_s=t1 - t0, render_s=time.perf_counter() - t1)
+        with open(p["verifier.sol"]) as f:
+            out["render_matches"] = f.read() == \
+                api.generate_verifier_from_vk(vk)
+
+        toy = [({3: 1}, {4: 1}, {1: 1}), ({3: 1, 4: 1}, {0: 1}, {2: 1})]
+        r1cs_file.save_r1cs(p["toy.r1cs"], r1cs_of(toy, 5, 2))
+        witness.save_witness(p["toy.json"], [1, 35, 12, 5, 7], circ.P)
+        t0 = time.perf_counter()
+        rcs["toy groth16_setup"] = cli.main([
+            "groth16_setup", "--circuit", p["toy.r1cs"], "--pk", p["toy.pk"],
+            "--vk", p["toy.vk.json"]])
+        rcs["toy groth16_prove"] = cli.main([
+            "groth16_prove", "--circuit", p["toy.r1cs"], "--witness",
+            p["toy.json"], "--pk", p["toy.pk"], "--proof",
+            p["toy.proof.json"], "--public_input", p["toy.public.json"]])
+        rcs["toy groth16_verify"] = cli.main([
+            "groth16_verify", "--vk", p["toy.vk.json"], "--proof",
+            p["toy.proof.json"], "--public_input", p["toy.public.json"]])
+        out["toy_s"] = time.perf_counter() - t0
+    out["rcs"] = rcs
+    return out
+
+
+def _arg_airs(dev) -> list:
+    """Phase 7: each example AIR with arguments at each size, written to
+    files, then stark_prove and stark_verify through cli.main on the card
+    (the kernel counts set to 0 just before the prove, read just after);
+    the zkin's sha256 against ARG_SHA256."""
+    import torch
+
+    from eigen_zkvm_tpu_torch import cli, kernels
+
+    results = []
+    for nbits in ARG_NBITS:
+        for name in ARG_AIRS:
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                files = write_arg_air(tmp, name, nbits)
+                zkin = os.path.join(tmp, "zkin.json")
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                kernels.reset_counts()
+                rc = cli.main(["stark_prove", "-s", files["struct"], "-p",
+                               files["pil"], "-c", files["const"], "-m",
+                               files["cm"], "-o", zkin])
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                launches = kernels.counts()
+                rc_verify = cli.main(["stark_verify", "-s", files["struct"],
+                                      "-p", files["pil"], "-c",
+                                      files["const"], "-f", zkin])
+                t3 = time.perf_counter()
+                with open(zkin, "rb") as f:
+                    digest = hashlib.sha256(f.read()).hexdigest()
+            results.append(dict(
+                name=name, nbits=nbits, write_s=t1 - t0, prove_s=t2 - t1,
+                verify_s=t3 - t2, launches=launches, sha256=digest,
+                ok=(rc == 0 and rc_verify == 0
+                    and digest == ARG_SHA256[(name, nbits)]
+                    and all(launches[k.name] > 0
+                            for k in (kernels.NTT, kernels.POSEIDON)))))
+            print(f"  {name} 2^{nbits}: files {t1 - t0:.2f} s, stark_prove "
+                  f"{t2 - t1:.2f} s, stark_verify {t3 - t2:.2f} s, launches "
+                  f"{launches}, sha256 {digest[:16]}..., equal to the host "
+                  f"engine's: {digest == ARG_SHA256[(name, nbits)]}",
+                  flush=True)
+    return results
 
 
 def main() -> int:
@@ -684,7 +901,7 @@ def main() -> int:
     t0 = time.perf_counter()
     circ = bench_groth16.synthetic(G16_CONSTRAINTS, 2, G16_SEED)
     report["groth16_circuit_s"] = time.perf_counter() - t0
-    g16, pk = _groth16(dev, circ)
+    g16, pk, vk = _groth16(dev, circ)
     print(f"groth16: {G16_CONSTRAINTS} constraints, {g16['n_vars']} wires, "
           f"domain 2^{g16['domain'].bit_length() - 1}; setup "
           f"{g16['setup_s']:.3f} s, prove {g16['prove_s']:.3f} s, verify "
@@ -711,9 +928,59 @@ def main() -> int:
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
     # the kernels at the shapes this run gave them, reported first
+    t0 = time.perf_counter()
     for name, more in _check_groth16_shapes(dev, circ, pk).items():
         cases[name] = more + cases.get(name, [])
+    report["groth16_shapes_s"] = time.perf_counter() - t0
+
+    # 6. the command line at phase 5's width: files, prove, verify, render
+    t0 = time.perf_counter()
+    c6 = _cli_groth16(dev, circ, vk, pk)
+    report["cli_groth16"] = c6
+    report["cli_groth16_s"] = time.perf_counter() - t0
     del pk
+    stages = dict(c6["stages"])
+    prove_s = sum(t for k, t in c6["stages"] if not k.startswith("load"))
+    print(f"cli groth16 ({report['cli_groth16_s']:.1f} s): .r1cs written "
+          f"{c6['write_r1cs_s']:.2f} s ({c6['bytes']['circuit.r1cs']} "
+          f"bytes), "
+          f".wtns written {c6['write_wtns_s']:.2f} s, key file saved "
+          f"{c6['save_pk_s']:.2f} s ({c6['bytes']['pk.bin']} bytes); "
+          f"groth16_prove {c6['prove_s']:.2f} s: .r1cs load "
+          f"{stages['load r1cs']:.2f} s, .wtns load "
+          f"{stages['load witness']:.2f} s, key load {stages['load pk']:.2f} "
+          f"s, prove {prove_s:.2f} s; "
+          f"groth16_verify {c6['verify_s']:.2f} s, generate_verifier "
+          f"{c6['render_s']:.3f} s (the JAX package's text: "
+          f"{c6['render_matches']}); toy setup, prove, verify "
+          f"{c6['toy_s']:.2f} s; exit codes {c6['rcs']}; launches "
+          f"{c6['launches']}", flush=True)
+    for stage, sec in c6["stages"]:
+        print(f"  {stage}: {sec:.3f} s")
+    if any(rc != 0 for rc in c6["rcs"].values()) or not c6["render_matches"]:
+        return _fail("a command of the port's CLI failed at the Groth16 "
+                     "phase's width")
+    if c6["launches"][kernels.R1CS.name] != 1 or any(
+            c6["launches"][k.name] == 0 for k in
+            (kernels.MSM, kernels.FR_NTT)):
+        return _fail(f"the CLI's prove did not run its kernels: "
+                     f"{c6['launches']}")
+
+    # 7. the AIRs with plookup, permutation and connection arguments
+    t0 = time.perf_counter()
+    print("argument AIRs through the CLI's stark_prove and stark_verify:")
+    arg = _arg_airs(dev)
+    report["arg_airs"] = arg
+    report["arg_airs_s"] = time.perf_counter() - t0
+    print(f"argument AIRs: {report['arg_airs_s']:.1f} s")
+    if not all(a["ok"] for a in arg):
+        return _fail("an argument AIR's proof differs from the host "
+                     "engine's, was rejected, or launched no kernel")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks

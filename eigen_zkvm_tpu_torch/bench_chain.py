@@ -70,8 +70,9 @@ def build_chain_air(nbits: int, width: int):
 
 
 def pil_to_json(pil) -> dict:
-    """The PIL JSON that stark/types.py::load_pil reads (the writer of
-    eigen_zkvm_tpu/cli.py, `_pil_to_json`)."""
+    """The PIL JSON that stark/types.py::load_pil reads: the writer of
+    eigen_zkvm_tpu/cli.py (`_pil_to_json`), which leaves the plookup and
+    permutation identities out, with them written too."""
     def expr(e):
         d = {"op": e.op, "deg": e.deg}
         if e.id is not None:
@@ -87,6 +88,10 @@ def pil_to_json(pil) -> dict:
         if e.keep is not None:
             d["keep"] = e.keep
         return d
+
+    def lookup(p):
+        return {"f": p.f, "t": p.t, "selF": p.selF, "selT": p.selT,
+                "fileName": p.fileName, "line": p.line}
 
     refs = {}
     for k, v in pil.references.items():
@@ -104,8 +109,9 @@ def pil_to_json(pil) -> dict:
         "expressions": [expr(e) for e in pil.expressions],
         "polIdentities": [{"e": p.e, "fileName": p.fileName, "line": p.line}
                           for p in pil.polIdentities],
-        "plookupIdentities": [],
-        "permutationIdentities": [],
+        "plookupIdentities": [lookup(p) for p in pil.plookupIdentities],
+        "permutationIdentities": [lookup(p)
+                                  for p in pil.permutationIdentities],
         "connectionIdentities": [
             {"pols": c.pols, "connections": c.connections,
              "fileName": c.fileName, "line": c.line}

@@ -88,6 +88,42 @@ def synthetic(n_constraints: int, n_publics: int = 2, seed: int = 0
     return Circuit(constraints, len(w), n_publics, w)
 
 
+# Row lengths of `long_rows`: around the kernel's thread/warp threshold
+# (ops/r1cs.SHORT_MAX), and, at fixed strides, a 254-bit weighted sum and a
+# 4,096-term row.
+LONG_ROW_LENS = (0, 1, 2, 3, 16, 17, 33)
+
+
+def long_rows(n_rows: int, seed: int = 0) -> Circuit:
+    """Rows for K4's warp path (csrc/r1cs.cu), not a satisfiable circuit:
+    each side of row j has a length drawn from LONG_ROW_LENS, every 64th
+    row 254 terms (a Num2Bits sum) and every 1024th from row 7 on 4,096,
+    over a run of consecutive wires from a random start; coefficients 1
+    (30 %), -1 (30 %) or random; the witness random below r."""
+    rng = np.random.default_rng(seed)
+    prng = random.Random(seed)
+    n_vars = n_rows + 4096
+    w = [1] + [prng.randrange(R) for _ in range(n_vars - 1)]
+    lens = rng.choice(LONG_ROW_LENS, size=(n_rows, 3))
+    lens[::64] = 254
+    lens[7::1024] = 4096
+    starts = rng.integers(0, n_vars, size=(n_rows, 3))
+    total = int(lens.sum())
+    kind = rng.random(total)
+    coefs = [1 if k < 0.3 else R - 1 if k < 0.6 else prng.randrange(R)
+             for k in kind]
+    constraints, pos = [], 0
+    for j in range(n_rows):
+        sides = []
+        for side in range(3):
+            n, s0 = int(lens[j, side]), int(starts[j, side])
+            sides.append({(s0 + k) % n_vars: coefs[pos + k]
+                          for k in range(n)})
+            pos += n
+        constraints.append(tuple(sides))
+    return Circuit(constraints, n_vars, 0, w)
+
+
 def check(circuit: Circuit) -> bool:
     """Whether the witness satisfies every constraint."""
     w = circuit.w

@@ -16,8 +16,13 @@ G2 lane counts on random scalars below 2^253, every fourth one 0, and the
 Fr transforms (K3) on random values: `fr_ntt.ntt` at 2^21, forward and
 inverse, and the prove's quotient chain at its domain (three
 `to_coset`, `quotient`, `from_coset`).  Each prove's K3 launches are in its
-`launches`.  Only names that every tree of the port has are used.  The
-last line is one JSON object.
+`launches`.  Then the prove's R1CS step (K4) over 20 calls on the prove's
+own witness: where the tree has `r1cs.Rows`, its one `r1cs.evaluate` call
+(one launch into a [3, m, 4] buffer); in an older tree, its three
+`r1cs.evaluate` calls with the `torch.zeros` and copies `_witness_h` made
+around them.
+Only names that every tree of the port has are used, beside that one
+test.  The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -45,6 +50,27 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _r1cs_step(g16, r1cs, constraints, wit_m, m: int, n_pub: int):
+    """The prove's R1CS step as this tree's `_witness_h` runs it."""
+    import torch
+
+    if hasattr(r1cs, "Rows"):
+        rows = g16._rows(constraints, wit_m.device)
+        return lambda: r1cs.evaluate(rows, wit_m, m, n_pub)
+    mats = g16._csr(constraints, wit_m.device)
+    nc = len(constraints)
+
+    def step():
+        abz = []
+        for mat in mats:
+            full = torch.zeros((m, 4), dtype=torch.int64, device=wit_m.device)
+            full[:nc] = r1cs.evaluate(mat, wit_m)
+            abz.append(full)
+        abz[0][nc : nc + n_pub] = wit_m[:n_pub]
+        return abz
+    return step
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True)
@@ -60,8 +86,9 @@ def main(argv=None) -> int:
     from eigen_zkvm_tpu_torch import bench_groth16 as bg
     from eigen_zkvm_tpu_torch import kernels
     from eigen_zkvm_tpu_torch.groth16 import api
+    from eigen_zkvm_tpu_torch.groth16 import groth16 as g16
     from eigen_zkvm_tpu_torch.ops import bigint as bi
-    from eigen_zkvm_tpu_torch.ops import ec, fr_ntt
+    from eigen_zkvm_tpu_torch.ops import ec, fr_ntt, r1cs
     from eigen_zkvm_tpu_torch.utils.devices import card_line, cuda_device
     from eigen_zkvm_tpu_torch.utils.profiler import Prof
 
@@ -99,6 +126,10 @@ def main(argv=None) -> int:
     report["runs"] = runs
 
     wit = bi.to_tensor([int(v) % bg.R for v in circ.w], dev)
+    step = _r1cs_step(g16, r1cs, circ.constraints, fr_ntt.to_mont(wit),
+                      pk.domain_size, pk.n_public + 1)
+    k4_ms = _time_ms(step, 20)
+    del step
     k1 = {}
     for g, label, pts in ((ec.G1, "A", pk.a_query),
                           (ec.G2, "B2", pk.b2_query)):
@@ -139,8 +170,9 @@ def main(argv=None) -> int:
         lambda: fr_ntt.from_coset(fr_ntt.quotient(
             *(fr_ntt.to_coset(v, log_m) for v in abc), k), log_m), args.reps)
     del x, abc
-    report.update(k1_ms=k1, k2=k2, k3=k3,
+    report.update(k1_ms=k1, k2=k2, k3=k3, k4_step_ms=k4_ms,
                   k3_launches_warm_prove=runs[-1]["launches"]["fr_ntt"],
+                  k4_launches_warm_prove=runs[-1]["launches"]["r1cs"],
                   peak_bytes=torch.cuda.max_memory_allocated(dev))
     print(f"K1 A {k1['A']:.3f} ms, B2 {k1['B2']:.3f} ms; K2 G2 "
           f"{k2['G2']['ms']:.3f} ms ({n2} lanes), G1 {k2['G1']['ms']:.3f} ms "
@@ -148,6 +180,8 @@ def main(argv=None) -> int:
     print("K3 " + ", ".join(f"{key} {ms:.4f}" for key, ms in k3.items())
           + f"; K3 launches a warm prove {report['k3_launches_warm_prove']}",
           flush=True)
+    print(f"K4 the prove's R1CS step {k4_ms:.4f} ms; K4 launches a warm "
+          f"prove {report['k4_launches_warm_prove']}", flush=True)
     print(json.dumps(report))
     return 0
 

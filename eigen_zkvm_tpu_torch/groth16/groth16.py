@@ -71,7 +71,11 @@ class Proof:
 
 
 def _device(device) -> torch.device:
-    return cuda_device() if device is None else torch.device(device)
+    """`device`, or the current CUDA device (raises without one)."""
+    if device is not None:
+        return torch.device(device)
+    cuda_device()
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _eval_qap(constraints, n_vars, n_pub_total, tau, r, m):
@@ -176,17 +180,17 @@ def setup(constraints, n_vars: int, n_publics: int, rng=None,
     return pk, vk
 
 
-# CSR matrices per constraint list: proving keys are reused across proofs,
+# The R1CS rows per constraint list: proving keys are reused across proofs,
 # so the rows are walked once.  The stored list reference guards id() reuse.
-_csr_cache: dict = {}
+_rows_cache: dict = {}
 
 
-def _csr(constraints, device) -> list[r1cs.Matrix]:
+def _rows(constraints, device) -> r1cs.Rows:
     key = (id(constraints), device)
-    ent = _csr_cache.get(key)
+    ent = _rows_cache.get(key)
     if ent is None or ent[0] is not constraints:
-        _csr_cache.clear()
-        ent = _csr_cache[key] = (constraints, r1cs.build(constraints, device))
+        _rows_cache.clear()
+        ent = _rows_cache[key] = (constraints, r1cs.build(constraints, device))
     return ent[1]
 
 
@@ -195,16 +199,10 @@ def _witness_h(constraints, wit: torch.Tensor, n_pub_total: int, m: int,
     """Coefficients of H = (A*B - C)/Z via coset NTTs over F_r
     (groth16._witness_h): [m - 1, 4] standard words."""
     log_m = m.bit_length() - 1
-    nc = len(constraints)
-    mats = _csr(constraints, wit.device)
+    rows = _rows(constraints, wit.device)
     prof.tick("csr")
     wit_m = fr_ntt.to_mont(wit)
-    abz = []
-    for mat in mats:
-        full = torch.zeros((m, 4), dtype=torch.int64, device=wit.device)
-        full[:nc] = r1cs.evaluate(mat, wit_m)
-        abz.append(full)
-    abz[0][nc : nc + n_pub_total] = wit_m[:n_pub_total]
+    abz = r1cs.evaluate(rows, wit_m, m, n_pub_total)  # one launch, [3, m, 4]
     prof.tick("r1cs eval")
     ac, bc, cc = (fr_ntt.to_coset(v, log_m) for v in abz)
     k = fr_ntt.mont_const(fr_ntt.z_coset_inv(m), wit.device)

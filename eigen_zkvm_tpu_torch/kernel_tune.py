@@ -1,6 +1,7 @@
 """Launch shapes and design choices of the CUDA kernels, measured side by side.
 
     python -m eigen_zkvm_tpu_torch.kernel_tune         # needs one GPU + nvcc
+    python -m eigen_zkvm_tpu_torch.kernel_tune --r1cs  # K4's row threshold
 
 Each variant is the kernel's source with one constant or line replaced
 (registers capped differently, another unroll, more threads), compiled into
@@ -13,6 +14,7 @@ spills is listed for its time only, the kernels ship spill-free.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -121,7 +123,56 @@ def _run_variants(source: str, variants: dict, symbols, prepare, cases):
               + " | ".join(ptxas), flush=True)
 
 
-def main() -> int:
+def r1cs_threshold_sweep(dev, nnz: int = 1 << 21, reps: int = 20) -> list:
+    """K4 (csrc/r1cs.cu) on rows of one length L, each row on a thread and
+    on a warp: three matrices of nnz / L rows, random wires, every
+    coefficient a product (indices 2..9 of a table of ten, 1 and -1 first).
+    Both must agree bit for bit.  [(L, thread ms, warp ms)]."""
+    import random
+
+    import torch
+
+    from .curves import bn254
+    from .kernel_probe import _time_ms
+    from .ops import bigint as bi
+    from .ops import r1cs
+
+    prng = random.Random(5)
+    n_vars = 1 << 21
+    wit = bi.mont_ints(bi.FR, [prng.randrange(bn254.R)
+                               for _ in range(n_vars)], dev)
+    coefs = bi.mont_ints(bi.FR, [1, bn254.R - 1] + [
+        prng.randrange(bn254.R) for _ in range(8)], dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    out = []
+    for L in (2, 4, 8, 16, 32, 64):
+        nc = nnz // L
+        rows = r1cs.Rows(
+            nc=nc, indptr=torch.arange(0, 3 * nc * L + 1, L, device=dev,
+                                       dtype=torch.int32),
+            wires=torch.randint(0, n_vars, (3 * nc * L,), device=dev,
+                                dtype=torch.int32, generator=gen),
+            cidx=torch.randint(2, 10, (3 * nc * L,), device=dev,
+                               dtype=torch.int16, generator=gen),
+            coefs=coefs, dest=torch.arange(3 * nc, device=dev,
+                                           dtype=torch.int32),
+            n_short=3 * nc)
+        ms = []
+        for n_short in (3 * nc, 0):
+            rs = dataclasses.replace(rows, n_short=n_short)
+            ms.append((_time_ms(lambda: r1cs.evaluate(rs, wit, nc, 0),
+                                reps), r1cs.evaluate(rs, wit, nc, 0)))
+        if not torch.equal(ms[0][1], ms[1][1]):
+            raise AssertionError(f"r1cs rows of {L}: thread and warp differ")
+        out.append((L, ms[0][0], ms[1][0]))
+        print(f"r1cs rows of {L} nonzeros, {nc} a matrix: a thread a row "
+              f"{ms[0][0]:.4f} ms, a warp a row {ms[1][0]:.4f} ms",
+              flush=True)
+    return out
+
+
+def main(argv=None) -> int:
     import numpy as np
 
     from . import kernels
@@ -131,6 +182,9 @@ def main() -> int:
 
     dev = cuda_device(0)
     print(f"card: {card_line()}")
+    if "--r1cs" in (sys.argv[1:] if argv is None else argv):
+        r1cs_threshold_sweep(dev)
+        return 0
     rng = np.random.default_rng(3)
 
     def rand(*shape):

@@ -168,7 +168,8 @@ SIGNATURES = {
     "fr_ntt_pass": [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "fr_mul": [_I, _VP, _VP, _I, _VP, _LL, _VP],
     "fr_quotient": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
-    "r1cs_eval": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
+    "r1cs_eval": [_I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _LL, _LL, _LL, _LL,
+                  _VP, _VP],
 }
 
 

@@ -2,12 +2,14 @@
 (stark/types.py) built with pilcom's degree conventions.
 
 Copy of eigen_zkvm_tpu/stark/pil_builder.py, imports pointed at the port,
-cut to what the port's chain AIR (bench_chain.build_chain_air) uses:
-constant and committed columns, publics, and polynomial identities.
+cut to what the port's AIRs use (bench_chain.build_chain_air, examples/):
+constant and committed columns, publics, polynomial identities, and
+plookup, permutation and connection arguments.
 """
 from __future__ import annotations
 
-from .types import Expression, PIL, PolIdentity, Public, Reference
+from .types import (ConnectionIdentity, Expression, PIL, PlookupIdentity,
+                    PolIdentity, Public, Reference)
 
 
 class PilBuilder:
@@ -80,6 +82,35 @@ class PilBuilder:
         assert pol_expr.op == "cm"
         self.publics.append(Public("cmP", pol_expr.id, idx, pid, name))
         return self.public(pid)
+
+    def plookup(self, f: list, t: list, sel_f=None, sel_t=None,
+                file_name="pil_builder", line=0):
+        """{selF: f...} in {selT: t...}  (each a list of expressions)."""
+        self.plookup_identities.append(
+            self._lookup(f, t, sel_f, sel_t, file_name, line))
+
+    def permutation(self, f: list, t: list, sel_f=None, sel_t=None,
+                    file_name="pil_builder", line=0):
+        self.permutation_identities.append(
+            self._lookup(f, t, sel_f, sel_t, file_name, line))
+
+    def _lookup(self, f, t, sel_f, sel_t, file_name, line):
+        fid = [self._push(e) for e in f]
+        tid = [self._push(e) for e in t]
+        return PlookupIdentity(
+            fid, tid, self._push(sel_f) if sel_f is not None else None,
+            self._push(sel_t) if sel_t is not None else None, file_name, line)
+
+    def connect(self, pols: list, connections: list,
+                file_name="pil_builder", line=0):
+        pid = [self._push(e) for e in pols]
+        cid = [self._push(e) for e in connections]
+        self.connection_identities.append(
+            ConnectionIdentity(pid, cid, file_name, line))
+
+    def _push(self, e) -> int:
+        self.expressions.append(e)
+        return len(self.expressions) - 1
 
     def build(self) -> PIL:
         return PIL(

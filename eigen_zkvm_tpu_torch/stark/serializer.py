@@ -1,8 +1,8 @@
 """StarkProof <-> snarkjs-compatible zkin JSON.
 
 Copy of eigen_zkvm_tpu/stark/serializer.py (`stark_proof_to_json`,
-`stark_proof_from_json` and their dict forms) on the port's StarkProof and
-FRIProof.
+`stark_proof_from_json` and their dict forms, `join_zkin`) on the port's
+StarkProof and FRIProof.
 
 Schema replicates the reference serializer (starky/src/serializer.rs:138-262):
 field elements are decimal strings, GF(p^3) values are 3-string lists, GL
@@ -174,3 +174,20 @@ def stark_proof_from_dict(d: dict) -> StarkProof:
 
 def stark_proof_from_json(s: str) -> StarkProof:
     return stark_proof_from_dict(json.loads(s))
+
+
+def join_zkin(zkin1: dict, zkin2: dict) -> dict:
+    """Merge two recursive1 proof inputs into one aggregation input
+    (reference starky/src/zkin_join.rs: a_/b_ prefixes, shared publics
+    minus the 4 rootC limbs, shared rootC; output keys sorted)."""
+    out: dict = {}
+    for k in sorted(zkin1):
+        v = zkin1[k]
+        out[f"a_{k}"] = v
+        if k == "publics":
+            out["publics"] = v[:-4] if isinstance(v, list) and len(v) >= 4 else v
+        if k == "rootC":
+            out["rootC"] = v
+    for k in sorted(zkin2):
+        out[f"b_{k}"] = zkin2[k]
+    return {k: out[k] for k in sorted(out)}

@@ -15,6 +15,7 @@ import os
 import random
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -207,11 +208,75 @@ def test_r1cs_rows_match_python_sums():
     circ = bg.synthetic(200, 2, seed=9)
     assert bg.check(circ)
     wit = fr_ntt.to_mont(bi.to_tensor(circ.w))
-    for sel, mat in enumerate(r1cs.build(circ.constraints, "cpu")):
-        got = [bi.FR.from_mont_int(v)
-               for v in bi.to_ints(r1cs.evaluate(mat, wit))]
-        assert got == [sum(circ.w[s] * c for s, c in row[sel].items())
-                       % jbn.R for row in circ.constraints]
+    rows = r1cs.build(circ.constraints, "cpu")
+    m, n_pub = 256, 3
+    out = r1cs.evaluate(rows, wit, m, n_pub)
+    assert out.shape == (3, m, 4)
+    for sel in range(3):
+        got = [bi.FR.from_mont_int(v) for v in bi.to_ints(out[sel])]
+        want = [sum(circ.w[s] * c for s, c in row[sel].items()) % jbn.R
+                for row in circ.constraints]
+        want += [0] * (m - len(want))
+        if sel == 0:
+            want[200 : 200 + n_pub] = [v % jbn.R for v in circ.w[:n_pub]]
+        assert got == want
+
+
+@pytest.mark.parametrize("name", ["toy", "synthetic_61"])
+def test_fused_rows_match_the_jax_native_rows(monkeypatch, name):
+    """K4's plain version ([3, m, 4]: the three matrices, the zero padding,
+    the publics in A's tail) against the JAX package's `_r1cs_csr`, its
+    native `r1cs_eval` and `_witness_h`'s padding and publics
+    (groth16.py:283-341), word for word."""
+    monkeypatch.setenv("EIGEN_ZKVM_ENGINE", "host")
+    circ = _toy_circuit() if name == "toy" else bg.synthetic(61, 2, seed=3)
+    n_pub = circ.n_publics + 1
+    nc = len(circ.constraints)
+    m = 1 << (nc + n_pub - 1).bit_length()
+    nat = jg._native_ec(jbn)
+    wit_l = jg._int_limbs(circ.w, jbn.R)
+    want = []
+    for indptr, wires, coefs_m in jg._r1cs_csr(nat, circ.constraints, jbn.R):
+        full = np.zeros((m, 4), dtype=np.uint64)
+        full[:nc] = nat.r1cs_eval(indptr, wires, coefs_m, wit_l)
+        want.append(full)
+    want[0][nc : nc + n_pub] = wit_l[:n_pub]
+    rows = r1cs.build(circ.constraints, "cpu")
+    wit = bi.to_tensor([int(v) % jbn.R for v in circ.w])
+    got = fr_ntt.from_mont(r1cs.evaluate(rows, fr_ntt.to_mont(wit), m, n_pub)
+                           .reshape(3 * m, 4)).reshape(3, m, 4)
+    assert np.array_equal(got.numpy().view(np.uint64), np.stack(want))
+
+
+def test_long_rows_match_python_sums():
+    """Rows of 0 to 4,096 terms (bench_groth16.long_rows: 254 and 4,096 at
+    fixed strides, the rest around the kernel's thread/warp threshold),
+    coefficients 1, -1 or random, against Python sums."""
+    circ = bg.long_rows(1 << 9, seed=7)
+    rows = r1cs.build(circ.constraints, "cpu")
+    lens = rows.indptr.diff()
+    assert {0, 1, 254, 4096} <= set(lens.tolist())
+    # the stored order: short rows by products then length, long rows last,
+    # a row's products before its +-1 terms
+    assert bool((lens[: rows.n_short] <= r1cs.SHORT_MAX).all())
+    assert bool((lens[rows.n_short :] > r1cs.SHORT_MAX).all())
+    assert sorted(rows.dest.tolist()) == list(range(3 * rows.nc))
+    ptr = rows.indptr.tolist()
+    prods = [(rows.cidx[ptr[t] : ptr[t + 1]] >= 2).long() for t in
+             range(3 * rows.nc)]
+    assert all(bool((p[:-1] >= p[1:]).all()) for p in prods if len(p) > 1)
+    key = [(int(p.sum()), len(p)) for p in prods[: rows.n_short]]
+    assert key == sorted(key)
+    assert bi.to_ints(rows.coefs[:2]) == [bi.FR.to_mont_int(1),
+                                          bi.FR.to_mont_int(jbn.R - 1)]
+    m, n_pub = (1 << 9) + 3, 3
+    out = r1cs.evaluate(rows, fr_ntt.to_mont(bi.to_tensor(circ.w)), m, n_pub)
+    for sel in range(3):
+        got = [bi.FR.from_mont_int(v) for v in bi.to_ints(out[sel])]
+        want = [sum(circ.w[s] * c for s, c in row[sel].items()) % jbn.R
+                for row in circ.constraints]
+        want += circ.w[:n_pub] if sel == 0 else [0] * n_pub
+        assert got == want
 
 
 def test_synthetic_circuit_is_deterministic_and_half_boolean():

@@ -377,8 +377,27 @@ def test_fr_coset_kernels_match_plain(cuda, log_n):
 def test_r1cs_kernel_matches_plain(cuda):
     circ = bg.synthetic(3000, 2, seed=5)
     wit = fr_ntt.to_mont(bi.to_tensor(circ.w, cuda))
-    for mat in r1cs.build(circ.constraints, cuda):
-        _equal(r1cs.evaluate(mat, wit), r1cs.evaluate_plain(mat, wit))
+    rows = r1cs.build(circ.constraints, cuda)
+    before = kernels.R1CS.launches
+    got = r1cs.evaluate(rows, wit, 4096, 3)
+    assert kernels.R1CS.launches == before + 1
+    _equal(got, r1cs.evaluate_plain(rows, wit, 4096, 3))
+
+
+@pytest.mark.parametrize("n_rows", [1 << 10, 1 << 14])
+def test_r1cs_long_rows_kernel_matches_plain(cuda, n_rows):
+    """Rows of 0 to 4,096 nonzeros (warps and threads in one launch), the
+    coefficient index as int16 (2^10: fewer than 2^15 distinct values) and
+    as int32 (2^14), publics in A's tail."""
+    circ = bg.long_rows(n_rows, seed=7)
+    rows = r1cs.build(circ.constraints, cuda)
+    assert rows.n_short < 3 * rows.nc
+    assert rows.cidx.dtype == (torch.int16 if n_rows == 1 << 10
+                               else torch.int32)
+    wit = fr_ntt.to_mont(bi.to_tensor(circ.w, cuda))
+    m = n_rows + 5
+    _equal(r1cs.evaluate(rows, wit, m, 5),
+           r1cs.evaluate_plain(rows, wit, m, 5))
 
 
 def test_groth16_on_the_card_writes_the_cpu_bytes(cuda):
