@@ -71,6 +71,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
               rows, written to files and proved and verified through the
               CLI's stark_prove and stark_verify on the card; each zkin's
               sha256 must equal ARG_SHA256, the host engine's digest.
+  8. zkvm     zkVM chunk proving through eigen_zkvm_tpu_torch/zkvm/: the
+              native RV32 executor built with g++, the in-guest secp256k1
+              ecrecover (data/guests/ecrecover.elf.gz) loaded and run to its
+              end in 2^16-row continuation chunks (239, 15,642,943
+              cycles), the RV32IM machine (375 committed, 179 constant
+              columns, 99 plookups) set up once on the card, then chunks 0
+              and 1 traced, proved on the card (default_struct(16, 4)) and
+              verified; each chunk's RAM-image digest publics equal
+              ram_digest of its images, the two chain, and each zkin's
+              sha256 must equal ZKVM_SHA256, the host engine's digest.
+              Chunk 0's stark_gen runs beside nvidia-smi's utilization
+              samples (its busy share and device time), chunk 1's under
+              bench_zkvm's operator counter (the eager launches).  Then
+              the MiniRV machine's
+              MEMWALK guest over three or more 2^10-row chunks with a
+              64-word RAM image through zkvm_execute_and_prove on the card.
+              The NTT and Poseidon kernels are held at this path's widths:
+              the LDE [2^16, 375] -> [2^17, 375] and the leaves of
+              [2^17, 375] (the plain version on one row in 8).
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -79,7 +98,7 @@ a fold tree's 96-wide leaves (the sponge calls that chain a capacity).
 Each path's kernels must launch in its own run (counts set to 0 just
 before it, read just after): the GL kernels in phase 4, the four Groth16
 kernels in phase 5, K1, K3 and K4 in phase 6's prove, the GL kernels in
-each of phase 7's proves.
+each of phase 7's proves and of phase 8's chunk and MEMWALK proves.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and the IMADs its function needs at the least
@@ -156,6 +175,52 @@ ARG_SHA256 = {
     ("connection", 16):
         "e241e92b373ff978ad24d7765151e5c370cf899ac4940f6c2ed72db3ec4eb297",
 }
+# Phase 8: the ecrecover guest's chunks proved on the card, at
+# bench_zkvm.NBITS rows and bench_zkvm.QUERIES queries.  The digests are the
+# zkin JSON's sha256 that eigen_zkvm_tpu's host engine writes for the same
+# chunks (its Rv32Machine, StarkSetup and stark_gen on the JAX package's
+# native chunker's states);
+# tests/test_torch_rv32.py::test_host_engine_gives_the_pinned_zkvm_digests
+# recomputes them.
+ZKVM_CHUNKS = (0, 1)
+ZKVM_SHA256 = {
+    0: "5214d71fcd7ca054407b707947c8435b161f0e63e5a06a945e7312ee5a7a92c5",
+    1: "5dc0fb980bb1ab8fe441ff162224ae2eb4f64318237d68fe2c63ace370cd294f",
+}
+ZKVM_WIDTH = 375   # the RV32IM machine's committed columns for this guest
+# tests/test_zkvm_continuations.py's MiniRV guest: writes i into M[i mod
+# slots] for i = 1..n, then sums the slots; 2^10-row chunks, 64 image words
+MEMWALK = """
+    in x1
+    li x2, 0
+    in x3
+    li x4, 0
+loop:
+    blt x2, x1, body
+    j sum
+body:
+    addi x2, x2, 1
+    blt x4, x3, nowrap
+    li x4, 0
+nowrap:
+    sw x2, x4, 0
+    addi x4, x4, 1
+    j loop
+sum:
+    li x5, 0
+    li x6, 0
+rd:
+    blt x6, x3, rl
+    j done
+rl:
+    lw x7, x6, 0
+    add x5, x5, x7
+    addi x6, x6, 1
+    j rd
+done:
+    halt
+"""
+MEMWALK_TAPE, MEMWALK_NBITS, MEMWALK_RAM = [450, 48], 10, 64
 LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -284,6 +349,40 @@ def _edge_states(np):
     return st
 
 
+def _rand(rng, dev, shape, edge_rows=None):
+    """Random field elements on `dev`; a 2-D shape gets an all-zero first
+    and an all-(p-1) second column (NTT inputs), or, with `edge_rows`,
+    those rows first (Poseidon inputs)."""
+    import numpy as np
+
+    from eigen_zkvm_tpu_torch.ops import gl
+
+    a = rng.integers(0, 2**64, size=shape, dtype=np.uint64) \
+        % np.uint64(gl.P_INT)
+    if edge_rows is not None:
+        a[: edge_rows.shape[0]] = edge_rows
+    elif len(shape) == 2 and shape[1] >= 2:
+        a[:, 0] = 0
+        a[:, 1] = gl.P_INT - 1
+    return gl.from_u64(a, dev)
+
+
+def _leaf_perms(width: int) -> int:
+    """Permutations of ops/poseidon.hash_leaves for one row of `width`:
+    chunks of max(8, ceil(w/4)) columns, each a sponge of ceil(chunk/8)
+    calls (none for 4 columns or fewer), then one sponge over the chunks'
+    digests."""
+    def sponge(w):
+        return 0 if w <= 4 else -(-w // 8)
+
+    if width <= 4:
+        return 0
+    bs = max(8, -(-width // 4))
+    chunks = [min(bs, width - c) for c in range(0, width, bs)]
+    perms = sum(sponge(c) for c in chunks)
+    return perms if len(chunks) == 1 else perms + sponge(4 * len(chunks))
+
+
 def _check_kernels(dev, rng) -> dict:
     """Phase 3: each GL kernel against its plain version at the main path's
     shapes.  {kernel name: cases}; the first case of a kernel is the one its
@@ -295,17 +394,7 @@ def _check_kernels(dev, rng) -> dict:
     edge = _edge_states(np)
 
     def rand(*shape, edge_rows=None):
-        """Random field elements; a 2-D shape gets an all-zero first and an
-        all-(p-1) second column (NTT inputs), or, with `edge_rows`, those
-        rows first (Poseidon inputs)."""
-        a = rng.integers(0, 2**64, size=shape, dtype=np.uint64) \
-            % np.uint64(gl.P_INT)
-        if edge_rows is not None:
-            a[: edge_rows.shape[0]] = edge_rows
-        elif len(shape) == 2 and shape[1] >= 2:
-            a[:, 0] = 0
-            a[:, 1] = gl.P_INT - 1
-        return gl.from_u64(a, dev)
+        return _rand(rng, dev, shape, edge_rows)
 
     n, ext = 1 << NBITS, NBITS + 1
     # NTT: the LDE of a committed section, a leaf tile, the Q split's iNTT
@@ -778,6 +867,126 @@ def _arg_airs(dev) -> list:
     return results
 
 
+def _check_zkvm_kernels(dev, rng) -> dict:
+    """Phase 8's widths: the NTT at the LDE of the RV32 machine's committed
+    section, [2^16, 375] -> [2^17, 375], and Poseidon at that LDE's leaves
+    (the plain version on one row in 8)."""
+    from eigen_zkvm_tpu_torch import bench_zkvm, kernels
+    from eigen_zkvm_tpu_torch.ops import ntt, poseidon
+    import numpy as np
+
+    nb, w = bench_zkvm.NBITS, ZKVM_WIDTH
+    n, ext = 1 << nb, nb + 1
+    x = _rand(rng, dev, (n, w))
+    ntt_case = _hold(f"ntt interpolate [2^{nb},{w}]->[2^{ext},{w}]",
+                     lambda: ntt.interpolate(x, nb, ext),
+                     lambda: ntt.interpolate_plain(x, nb, ext), 10, 1,
+                     8 * w * 3 * n,
+                     _ntt_imads(nb, w, True) + _ntt_imads(ext, w, False))
+    del x
+    leaves = _rand(rng, dev, (2 * n, w),
+                   np.tile(_edge_states(np), (1, -(-w // 12)))[:, :w])
+    every = 8
+    pos_case = _hold(f"poseidon leaves [2^{ext},{w}] (plain: 1 row in "
+                     f"{every})",
+                     lambda: poseidon.hash_leaves(leaves, w),
+                     lambda: poseidon.hash_leaves_plain(leaves[::every], w),
+                     10, 0, 8 * (leaves.numel() + leaves.shape[0] * 4),
+                     POSEIDON_IMADS * _leaf_perms(w) * leaves.shape[0],
+                     rows=slice(None, None, every))
+    return {kernels.NTT.name: [ntt_case], kernels.POSEIDON.name: [pos_case]}
+
+
+def _zkvm(dev) -> dict:
+    """Phase 8: the native executor's build, the ecrecover guest's
+    chunking, the RV32IM machine's setup, chunks 0 and 1 traced, proved on
+    the card and verified (chunk 0 with its busy share sampled, chunk 1
+    with its operators counted), their digests and chain; then the MiniRV
+    MEMWALK chain on the card."""
+    import torch
+
+    from eigen_zkvm_tpu_torch import bench_zkvm, kernels
+    from eigen_zkvm_tpu_torch.stark.engine import Engine
+    from eigen_zkvm_tpu_torch.zkvm import lib, rv32_native
+    from eigen_zkvm_tpu_torch.zkvm.rv32_lib import check_chain_publics
+
+    out = {}
+    t0 = time.perf_counter()
+    rv32_native.build()
+    rv32_native.library()
+    out["native_build_s"] = time.perf_counter() - t0
+    guest = bench_zkvm.Guest()
+    out.update(cycles=guest.chunker.total_cycles,
+               n_chunks=len(guest.chunker.chunks), execute_s=guest.execute_s)
+    print(f"  guest: {out['cycles']} cycles, {out['n_chunks']} chunks of "
+          f"2^{guest.nbits} rows (executed in {guest.execute_s:.3f} s; "
+          f"executor built in {out['native_build_s']:.2f} s)", flush=True)
+    engine = Engine(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    machine, setup, ss, times = bench_zkvm.setup_machine(
+        guest, bench_zkvm.QUERIES, engine)
+    out.update(times, n_cm=machine.pil.nCommitments,
+               n_const=machine.pil.nConstants,
+               n_plookups=len(machine.pil.plookupIdentities))
+    print(f"  machine {times['machine_s']:.3f} s ({out['n_cm']} committed, "
+          f"{out['n_const']} constant columns, {out['n_plookups']} "
+          f"plookups), setup {times['setup_s']:.3f} s", flush=True)
+    chunks = []
+    for k in ZKVM_CHUNKS:
+        if k == ZKVM_CHUNKS[0]:
+            r = bench_zkvm.prove_chunk(guest, machine, setup, ss, k, engine,
+                                       busy=True)
+        else:
+            counter = bench_zkvm.op_counter()
+            with counter:
+                r = bench_zkvm.prove_chunk(guest, machine, setup, ss, k,
+                                           engine)
+            r["ops"] = sum(counter.counts.values())
+            r["by_op"] = sorted(counter.by_name().items(),
+                                key=lambda kv: -kv[1])[:12]
+        r["sha256_ok"] = r["zkin_sha256"] == ZKVM_SHA256[k]
+        chunks.append(r)
+        print(f"  chunk {k}: {r['rows']} states in {r['states_s']:.3f} s; "
+              f"trace, prove, verify {r['wall_s']:.3f} s: "
+              + ", ".join(f"{st} {t:.3f}" for st, t in r["stages"])
+              + f"; launches {r['launches']}; digests hold "
+              f"{r['digests_hold']}; zkin sha256 {r['zkin_sha256'][:16]}..., "
+              f"equal to the host engine's: {r['sha256_ok']}", flush=True)
+        if "busy_share" in r:
+            print(f"  chunk {k}'s stark_gen: {r['stark_gen_s']:.3f} s, busy "
+                  f"share {r['busy_share']} (nvidia-smi utilization.gpu, "
+                  f"{r['busy_samples']} samples), device time "
+                  f"{r['device_s']} s", flush=True)
+        else:
+            print(f"  chunk {k} under the op counter: {r['ops']} operators "
+                  f"dispatched, views excluded (the NTT and Poseidon "
+                  f"kernels apart); top {r['by_op']}", flush=True)
+    out["chunks"] = chunks
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["chain_holds"] = check_chain_publics([r["publics"] for r in chunks])
+    del machine, setup
+
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    proofs, pubs, _, _, _ = lib.zkvm_execute_and_prove(
+        MEMWALK, MEMWALK_TAPE, n_bits=MEMWALK_NBITS, n_queries=2,
+        ram_words=MEMWALK_RAM, device=dev)
+    torch.cuda.synchronize()
+    slots = [0] * MEMWALK_TAPE[1]
+    for i in range(1, MEMWALK_TAPE[0] + 1):
+        slots[(i - 1) % MEMWALK_TAPE[1]] = i
+    out["memwalk"] = dict(chunks=len(proofs), s=time.perf_counter() - t0,
+                          launches=kernels.counts(),
+                          sum_ok=pubs[-1]["x5_out"] == sum(slots))
+    print(f"  MiniRV MEMWALK: {len(proofs)} chunks of 2^{MEMWALK_NBITS} "
+          f"rows proved, verified and chained in {out['memwalk']['s']:.2f} "
+          f"s; launches {out['memwalk']['launches']}; result "
+          f"{out['memwalk']['sum_ok']}", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     os.environ.setdefault("EIGEN_ZKVM_SYNC", "1")
@@ -790,6 +999,9 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "eigen_zkvm_tpu_torch")):
         return _fail(f"the port's package is not beside {__file__}")
     sys.path.insert(0, ROOT)
+    from eigen_zkvm_tpu_torch import bench_zkvm
+    if not os.path.isfile(bench_zkvm.GUEST):
+        return _fail(f"the guest fixture {bench_zkvm.GUEST} is missing")
     import numpy as np
 
     from eigen_zkvm_tpu_torch import bench_chain, kernels
@@ -981,12 +1193,46 @@ def main() -> int:
     report["foreign_modules"] = foreign
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
+    # 8. zkVM chunk proving: the ecrecover guest's chunks 0 and 1, MEMWALK
+    t0 = time.perf_counter()
+    print("zkvm: the ecrecover guest's chunks on the card through zkvm/:")
+    try:
+        z = _zkvm(dev)
+    except RuntimeError as e:
+        return _fail(f"the zkVM phase failed: {e}")
+    report["zkvm"] = z
+    for name, more in _check_zkvm_kernels(dev, rng).items():
+        cases[name] = cases[name] + more
+    report["zkvm_s"] = time.perf_counter() - t0
+    print(f"zkvm: {report['zkvm_s']:.1f} s; peak device memory "
+          f"{z['peak_bytes'] / 2**30:.3f} GiB; chain holds "
+          f"{z['chain_holds']}")
+    gl_names = (kernels.NTT.name, kernels.POSEIDON.name)
+    if (z["cycles"], z["n_chunks"]) != (15_642_943, 239):
+        return _fail(f"the guest ran {z['cycles']} cycles in "
+                     f"{z['n_chunks']} chunks")
+    if not (z["chain_holds"] and all(r["digests_hold"] and r["sha256_ok"]
+                                     for r in z["chunks"])):
+        return _fail("a zkVM chunk's proof differs from the host engine's, "
+                     "or its digests or the chain do not hold")
+    if any(r["launches"][n] == 0 for r in z["chunks"] for n in gl_names) \
+            or any(z["memwalk"]["launches"][n] == 0 for n in gl_names):
+        return _fail("a zkVM prove did not launch the NTT and Poseidon")
+    if z["memwalk"]["chunks"] < 3 or not z["memwalk"]["sum_ok"]:
+        return _fail("the MEMWALK chain is short or its result is wrong")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks
     if any(c["err"] != 0.0 for c in checks):
         return _fail("a kernel disagrees with its plain version at the "
-                     "Groth16 run's shapes")
+                     "Groth16 run's or the zkVM path's shapes")
 
     report["smoke_s"] = time.perf_counter() - t_start
     print(f"smoke: {report['smoke_s']:.1f} s, kernel build included")
@@ -999,7 +1245,10 @@ def main() -> int:
                      "plain_ms": by_name[k.name]["plain_ms"],
                      "bound_ms": by_name[k.name]["bound_ms"],
                      "bound_by": by_name[k.name]["bound_by"],
-                     "library_ms": None}
+                     "library_ms": None,
+                     "cases": [{key: c[key] for key in (
+                         "label", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "err")} for c in by_name[k.name]["cases"]]}
                     for k in kernels.KERNELS]
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernel_lines}))

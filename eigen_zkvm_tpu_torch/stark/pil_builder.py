@@ -1,10 +1,11 @@
 """Programmatic PIL authoring: the in-memory PIL JSON schema
 (stark/types.py) built with pilcom's degree conventions.
 
-Copy of eigen_zkvm_tpu/stark/pil_builder.py, imports pointed at the port,
-cut to what the port's AIRs use (bench_chain.build_chain_air, examples/):
-constant and committed columns, publics, polynomial identities, and
-plookup, permutation and connection arguments.
+Copy of eigen_zkvm_tpu/stark/pil_builder.py, imports pointed at the port:
+constant and committed columns, publics, intermediates, polynomial
+identities, and plookup, permutation and connection arguments, as the
+port's AIRs (bench_chain.build_chain_air, examples/) and zkVM machines
+(zkvm/machine.py, zkvm/rv32.py) use them.
 """
 from __future__ import annotations
 
@@ -63,6 +64,10 @@ class PilBuilder:
         return Expression("number", 0, None, str(v))
 
     @staticmethod
+    def add(a, b):
+        return Expression("add", max(a.deg, b.deg), values=[a, b])
+
+    @staticmethod
     def sub(a, b):
         return Expression("sub", max(a.deg, b.deg), values=[a, b])
 
@@ -70,7 +75,25 @@ class PilBuilder:
     def mul(a, b):
         return Expression("mul", a.deg + b.deg, values=[a, b])
 
+    def smul(self, k: int, a):
+        return self.mul(self.num(k), a)
+
+    def lin(self, terms):
+        """sum of (coef, expr) terms."""
+        acc = None
+        for k, e in terms:
+            t = e if k == 1 else self.smul(k, e)
+            acc = t if acc is None else self.add(acc, t)
+        return acc
+
     # ---- statements ----
+    def intermediate(self, e) -> Expression:
+        """`pol name = e;` — returns a deg-1 exp reference."""
+        self.expressions.append(e)
+        ref = Expression("exp", 1, len(self.expressions) - 1)
+        ref.next = False
+        return ref
+
     def identity(self, e, file_name="pil_builder", line=0):
         self.expressions.append(e)
         self.pol_identities.append(

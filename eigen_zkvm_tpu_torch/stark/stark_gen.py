@@ -5,14 +5,15 @@ configuration (commit, VM and FRI on the device), with the same stage order
 and Fiat-Shamir schedule:
 
   stage1  commit trace            -> LDE + Merkle (ops/commit.py)
-  stage2  plookup H1/H2           -> device segment + host stable sort
+  stage2  plookup H1/H2           -> device segment + stable sorts
   stage3  grand-product Z         -> log-depth F3 prefix product
   stage4  Q = C / Z_H on coset    -> device segment + Q split (iNTT/NTT)
   evals   openings at xi, w*xi    -> Lagrange iNTT + limb sums (ops/vm.py)
   FRI     deep quotient + folds   -> group iNTT + Horner, fold trees
 
 Every section lives on `engine.device` from the start; the host sees the
-roots, the openings, the query rows and the n-domain columns of a plookup.
+roots, the openings and the query rows (and, on the CPU, the plain h1/h2's
+columns).
 """
 from __future__ import annotations
 
@@ -75,6 +76,54 @@ def calculate_h1h2(f: np.ndarray, t: np.ndarray):
     order = np.argsort(keys, kind="stable")
     s = np.concatenate([t, f], axis=0)[order]
     return s[0::2], s[1::2]
+
+
+def _lexsort_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Permutation that sorts the rows of an [n, k] tensor by their columns
+    (last column most significant), equal rows in index order."""
+    perm = torch.arange(rows.shape[0], device=rows.device)
+    for c in range(rows.shape[1]):
+        order = torch.sort(rows[perm, c], stable=True).indices
+        perm = perm[order]
+    return perm
+
+
+def calculate_h1h2_tensor(f: torch.Tensor, t: torch.Tensor):
+    """calculate_h1h2 as tensor code on the rows' device, with the same
+    bits: t and f ([n, k] int64) sorted together so that equal rows form
+    runs, each run's last t index (the largest) is the key of its f rows,
+    and a stable sort of the keys merges t then f.  Raises ValueError when
+    an f row is missing from t."""
+    n_t = t.shape[0]
+    rows = torch.cat([t, f])
+    perm = _lexsort_rows(rows)
+    srt = rows[perm]
+    new_run = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    new_run[1:] = (srt[1:] != srt[:-1]).any(dim=1)
+    run = torch.cumsum(new_run, 0) - 1
+    in_t = perm < n_t
+    last_t = torch.full((rows.shape[0],), -1, dtype=torch.int64,
+                        device=rows.device)
+    last_t.scatter_reduce_(0, run[in_t], perm[in_t], "amax")
+    key_f = torch.empty(f.shape[0], dtype=torch.int64, device=rows.device)
+    key_f[perm[~in_t] - n_t] = last_t[run[~in_t]]
+    missing = key_f < 0
+    if bool(missing.any()):
+        row = f[int(torch.nonzero(missing)[0, 0])]
+        raise ValueError("Number not included: "
+                         f"{tuple(int(x) for x in gl.to_u64(row))}")
+    keys = torch.cat([torch.arange(n_t, device=rows.device), key_f])
+    merged = rows[torch.sort(keys, stable=True).indices]
+    return merged[0::2], merged[1::2]
+
+
+def h1h2(f: torch.Tensor, t: torch.Tensor):
+    """Plookup halves of f and t ([n, 3] on the engine's device): the
+    plain calculate_h1h2 for CPU tensors, the tensor version on a card."""
+    if f.device.type == "cpu":
+        return [gl.from_u64(h) for h in calculate_h1h2(gl.to_u64(f),
+                                                         gl.to_u64(t))]
+    return calculate_h1h2_tensor(f, t)
 
 
 def calculate_z(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -156,10 +205,10 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
 
     vm.execute_segment(ctx, program.step2prev, "n")
     for pu in starkinfo.pu_ctx:
-        f_pol = gl.to_u64(get_pol(ctx, starkinfo.exp2pol[pu.f_exp_id]))
-        t_pol = gl.to_u64(get_pol(ctx, starkinfo.exp2pol[pu.t_exp_id]))
-        for h in calculate_h1h2(f_pol, t_pol):
-            set_pol(ctx, starkinfo.cm_n[n_cm], gl.from_u64(h, dev))
+        f_pol = get_pol(ctx, starkinfo.exp2pol[pu.f_exp_id])
+        t_pol = get_pol(ctx, starkinfo.exp2pol[pu.t_exp_id])
+        for h in h1h2(f_pol, t_pol):
+            set_pol(ctx, starkinfo.cm_n[n_cm], h)
             n_cm += 1
     prof.tick("stage1 trace commit")
 

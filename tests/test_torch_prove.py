@@ -160,6 +160,14 @@ def test_proving_with_the_port_never_imports_jax():
         from eigen_zkvm_tpu_torch.groth16 import api, groth16
         from eigen_zkvm_tpu_torch.kernels import bn254_check
         from eigen_zkvm_tpu_torch.ops import bigint, ec, fr_ntt, r1cs
+        from eigen_zkvm_tpu_torch import bench_zkvm
+        from eigen_zkvm_tpu_torch.zkvm import (continuations, elf, lib,
+                                               machine, rv32, rv32_lib,
+                                               rv32_native)
+        nc = rv32_native.NativeChunker(
+            rv32_lib.program_from_asm("li a0, 5\\necall"), 0, n_bits=5)
+        assert nc.final.regs[10] == 5 and len(continuations.ram_digest(
+            [0] * 8)) == 4
         circ = bench_groth16.synthetic(12, 2, seed=1)
         assert bench_groth16.check(circ)
         x = bigint.mont_ints(bigint.FR, circ.w[:8])
@@ -205,7 +213,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert len(files) > 20
     dirs = {os.path.relpath(os.path.dirname(f), ROOT) for f in files}
     assert {"eigen_zkvm_tpu_torch/curves", "eigen_zkvm_tpu_torch/groth16",
-            "eigen_zkvm_tpu_torch/ops"} <= dirs
+            "eigen_zkvm_tpu_torch/ops", "eigen_zkvm_tpu_torch/zkvm"} <= dirs
+    assert os.path.join(ROOT, "eigen_zkvm_tpu_torch", "zkvm",
+                        "rv32_native.py") in files
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
     assert not bad, bad
