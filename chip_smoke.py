@@ -90,6 +90,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
               The NTT and Poseidon kernels are held at this path's widths:
               the LDE [2^16, 375] -> [2^17, 375] and the leaves of
               [2^17, 375] (the plain version on one row in 8).
+  9. bigfield big-field eSTARK proves through the CLI's stark_prove on the
+              card, at the shape of the reference's final BN128 layer
+              (2^16 -> 2^17 rows, 8 queries, FRI steps 17, 13, 9, 5): the
+              12-column chain AIR with BN128 and with BLS12381, and the
+              permutation example with BN128 (a committed stage-3 section
+              under the big field).  Every Merkle tree hashes on the
+              Poseidon-over-Fr kernel (csrc/poseidon_fr.cu), whose count
+              must rise in each prove; each zkin's sha256 must equal
+              BIGFIELD_SHA256, the host engine's digest.  Then the kernel
+              against its plain version at the proves' shapes: the 2^17
+              t = 5 leaf permutations, a 2^13-node t = 17 level (BN128 and
+              BLS12381), 2^14 rows of width 375 (t = 17 and t = 14 in one
+              sponge), 0 and r - 1 mixed in.
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -98,7 +111,8 @@ a fold tree's 96-wide leaves (the sponge calls that chain a capacity).
 Each path's kernels must launch in its own run (counts set to 0 just
 before it, read just after): the GL kernels in phase 4, the four Groth16
 kernels in phase 5, K1, K3 and K4 in phase 6's prove, the GL kernels in
-each of phase 7's proves and of phase 8's chunk and MEMWALK proves.
+each of phase 7's proves and of phase 8's chunk and MEMWALK proves, the
+NTT and Poseidon-Fr in each of phase 9's proves.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and the IMADs its function needs at the least
@@ -115,9 +129,11 @@ the bucket reduction; a fixed-base lane one for each nonzero 8-bit digit
 after its first, and 7 products for its affine result; a transform
 (m/2) log2 m products; the R1CS one product a nonzero whose coefficient
 is not +-1, with 4 bytes a row offset and a wire and 2 or 4 a coefficient
-index.  No single PyTorch
-call computes a Goldilocks NTT, a Poseidon permutation, a BN254 MSM or an
-Fr NTT, so `library_ms` is null.
+index; a big-field Poseidon permutation of width t 8 (3t + t^2) products
+in its full rounds and n_p (2t + 2) in its partial rounds (the field
+product priced as BN254's, 128).  No single PyTorch call computes a
+Goldilocks NTT, a Poseidon permutation, a BN254 MSM or an Fr NTT, so
+`library_ms` is null.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.
@@ -221,6 +237,22 @@ done:
     halt
 """
 MEMWALK_TAPE, MEMWALK_NBITS, MEMWALK_RAM = [450, 48], 10, 64
+# Phase 9: big-field eSTARK proves at the reference final layer's shape
+# (scripts/zkvm_e2e.py:183-188: nBits + 1, then down by 4 while above 5),
+# the struct bench_chain.chain_struct_json(16, 8, hash, "final").  The
+# digests are the zkin JSON's sha256 that eigen_zkvm_tpu's host engine (its
+# in-memory StarkSetup and stark_gen) writes for the same AIR and struct;
+# tests/test_torch_prove_bigfield.py::test_host_engine_gives_the_pinned_bigfield_digests
+# recomputes them.
+BIGFIELD_NBITS, BIGFIELD_QUERIES, BIGFIELD_WIDTH = 16, 8, 12
+BIGFIELD_SHA256 = {
+    ("chain", "BN128"):
+        "581f2c11d3ff07b0f6a474922eef87110103dafed9ef2f5a5b224277c18f7aa6",
+    ("chain", "BLS12381"):
+        "c6cb3604e774629bbb35d134d1732f5071b06bce44da4860cabc140250b0fe0a",
+    ("permutation", "BN128"):
+        "de29d770cb45559c67fa0b6e8637f57a13201d2c499ce925706361019692dc58",
+}
 LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -717,10 +749,12 @@ def _groth16(dev, circ) -> tuple:
                 proof_sha256=hashlib.sha256(text).hexdigest()), pk, vk
 
 
-def write_arg_air(directory: str, name: str, nbits: int) -> dict:
+def write_arg_air(directory: str, name: str, nbits: int,
+                  hash_type: str = "GL", steps: str = "chain") -> dict:
     """An example AIR of eigen_zkvm_tpu_torch/examples/ (trace seed 0) as
     the files stark_prove reads: {"pil", "struct", "const", "cm"} -> path
-    (the PIL JSON with its plookup and permutation identities)."""
+    (the PIL JSON with its plookup and permutation identities; the struct
+    bench_chain.chain_struct_json(nbits, ARG_QUERIES, hash_type, steps))."""
     import importlib
 
     from eigen_zkvm_tpu_torch import bench_chain
@@ -732,7 +766,8 @@ def write_arg_air(directory: str, name: str, nbits: int) -> dict:
     with open(files["pil"], "w") as f:
         json.dump(bench_chain.pil_to_json(pil), f)
     with open(files["struct"], "w") as f:
-        json.dump(bench_chain.chain_struct_json(nbits, ARG_QUERIES), f)
+        json.dump(bench_chain.chain_struct_json(nbits, ARG_QUERIES,
+                                                hash_type, steps), f)
     const_pols.save(files["const"])
     make_trace().save(files["cm"])
     return files
@@ -987,6 +1022,129 @@ def _zkvm(dev) -> dict:
     return out
 
 
+def _bigfield(dev) -> list:
+    """Phase 9: the chain AIR (BN128, BLS12381) and the permutation example
+    (BN128) at BIGFIELD_NBITS, written to files, then stark_prove through
+    cli.main on the card (the kernel counts set to 0 just before it, read
+    just after), the zkin's sha256 against BIGFIELD_SHA256, and
+    stark_verify through the CLI."""
+    import torch
+
+    from eigen_zkvm_tpu_torch import bench_chain, cli, kernels
+
+    results = []
+    for (name, hash_type), want in BIGFIELD_SHA256.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            if name == "chain":
+                f = bench_chain.write_chain_files(
+                    tmp, BIGFIELD_NBITS, BIGFIELD_WIDTH, BIGFIELD_QUERIES,
+                    hash_type, "final")
+                files = dict(f, struct=f["stark_struct"])
+            else:
+                files = write_arg_air(tmp, name, BIGFIELD_NBITS, hash_type,
+                                      "final")
+            zkin = os.path.join(tmp, "zkin.json")
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            rc = cli.main(["stark_prove", "-s", files["struct"], "-p",
+                           files["pil"], "-c", files["const"], "-m",
+                           files["cm"], "-o", zkin])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = kernels.counts()
+            rc_verify = cli.main(["stark_verify", "-s", files["struct"],
+                                  "-p", files["pil"], "-c", files["const"],
+                                  "-f", zkin])
+            t3 = time.perf_counter()
+            with open(zkin, "rb") as fh:
+                digest = hashlib.sha256(fh.read()).hexdigest()
+        results.append(dict(
+            name=name, hash=hash_type, write_s=t1 - t0, prove_s=t2 - t1,
+            verify_s=t3 - t2, launches=launches, sha256=digest,
+            ok=(rc == 0 and rc_verify == 0 and digest == want
+                and launches[kernels.NTT.name] > 0
+                and launches[kernels.POSEIDON_FR.name] > 0)))
+        print(f"  {name} {hash_type} 2^{BIGFIELD_NBITS}: files "
+              f"{t1 - t0:.2f} s, stark_prove {t2 - t1:.2f} s, stark_verify "
+              f"{t3 - t2:.2f} s, launches {launches}, sha256 "
+              f"{digest[:16]}..., equal to the host engine's: "
+              f"{digest == want}", flush=True)
+    return results
+
+
+def _fr_states(dev, field, B: int, t: int, seed: int):
+    """(inp [B, t-1, 4], init [B, 4]) of random values below 2^253 (or
+    2^254 for BLS12-381's r), made on the card, with the first three states
+    all 0, all r - 1, and 0 / r - 1 alternating."""
+    import torch
+
+    from eigen_zkvm_tpu_torch.ops import bigint as bi
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st = torch.randint(-2**63, 2**63 - 1, (B, t, 4), dtype=torch.int64,
+                       device=dev, generator=gen)
+    st[:, :, 3] &= (1 << (61 if field is bi.FR else 62)) - 1
+    edge = bi.to_tensor([0, field.modulus - 1], dev)
+    st[0] = edge[0]
+    st[1] = edge[1]
+    st[2] = edge[torch.arange(t, device=dev) & 1]
+    return st[:, 1:].contiguous(), st[:, 0].contiguous()
+
+
+def _fr_products(t: int, n_p: int) -> int:
+    """Field products of one permutation: x^5 (3) and the t x t mix on
+    every lane of the 8 full rounds, x^5 on lane 0 and the sparse layer
+    (t + t - 1) in each partial round."""
+    return 8 * (3 * t + t * t) + n_p * (3 + t + t - 1)
+
+
+def _check_bigfield_kernels(dev, rng) -> dict:
+    """Phase 9's shapes: the Poseidon-Fr kernel against permute_plain on
+    the card, bit for bit, with both times and its bound."""
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.hash import linearhash_big as lh
+    from eigen_zkvm_tpu_torch.ops import bigint as bi
+    from eigen_zkvm_tpu_torch.ops import poseidon_fr
+    import numpy as np
+
+    cases = []
+    n = 1 << (BIGFIELD_NBITS + 1)
+    for label, field, B, t in (
+            (f"poseidon_fr BN128 leaves 2^{BIGFIELD_NBITS + 1} t=5", bi.FR,
+             n, 5),
+            ("poseidon_fr BN128 level 2^13 t=17", bi.FR, 1 << 13, 17),
+            ("poseidon_fr BLS12381 level 2^13 t=17", bi.FR_BLS, 1 << 13,
+             17)):
+        inp, init = _fr_states(dev, field, B, t, B + t)
+        n_out = poseidon_fr.poseidon(field).hash_index + 1
+        n_p = poseidon_fr.poseidon(field).n_rounds_p(t)
+        cases.append(_hold(
+            label, lambda: poseidon_fr.permute(field, t, inp, init, n_out),
+            lambda: poseidon_fr.permute_plain(field, t, inp, init, n_out),
+            10, 0, 32 * B * (t + n_out),
+            _fr_products(t, n_p) * B * IMAD_BN254))
+        del inp, init
+    # 2^14 rows of width 375: 125 Fr a row, seven t = 17 calls and one
+    # t = 14 in one sponge
+    w, H = ZKVM_WIDTH, 1 << 14
+    rows = _rand(rng, dev, (H, w),
+                 np.tile(_edge_states(np), (1, -(-w // 12)))[:, :w])
+    n3 = -(-w // 3)
+    pos = poseidon_fr.poseidon(bi.FR)
+    prods = sum(_fr_products(min(16, n3 - i) + 1,
+                             pos.n_rounds_p(min(16, n3 - i) + 1))
+                for i in range(0, n3, 16))
+    cases.append(_hold(
+        f"poseidon_fr BN128 leaves [2^14,{w}] (t=17 x7, t=14)",
+        lambda: lh.hash_leaves(bi.FR, rows),
+        lambda: lh.hash_leaves_plain(bi.FR, rows), 10, 0,
+        8 * H * w + 32 * H, prods * H * IMAD_BN254))
+    return {kernels.POSEIDON_FR.name: cases}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     os.environ.setdefault("EIGEN_ZKVM_SYNC", "1")
@@ -1124,15 +1282,16 @@ def main() -> int:
     print(f"  proof sha256 {g16['proof_sha256']}; equal to the host "
           f"engine's: {g16['proof_sha256'] == GROTH16_HOST_SHA256}")
     report["groth16"] = g16
-    for k in kernels.KERNELS:
-        if k not in gl_kernels:
-            launches[k.name] = g16["launches"][k.name]
+    g16_kernels = (kernels.MSM, kernels.EC_BATCH, kernels.FR_NTT,
+                   kernels.R1CS)
+    for k in g16_kernels:
+        launches[k.name] = g16["launches"][k.name]
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
     report["foreign_modules"] = foreign
     if not g16["verified"]:
         return _fail("the port's Groth16 proof does not verify")
-    if any(launches[k.name] == 0 for k in kernels.KERNELS):
+    if any(launches[k.name] == 0 for k in gl_kernels + g16_kernels):
         return _fail(f"a kernel of its path never launched: {launches}")
     if g16["proof_sha256"] != GROTH16_HOST_SHA256:
         return _fail("the port's Groth16 proof differs from the host "
@@ -1227,12 +1386,32 @@ def main() -> int:
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
 
+    # 9. big-field eSTARK proves: BN128 and BLS12381 trees on the card
+    t0 = time.perf_counter()
+    print("bigfield: the final layer's shape through the CLI on the card:")
+    big = _bigfield(dev)
+    report["bigfield"] = big
+    launches[kernels.POSEIDON_FR.name] = sum(
+        r["launches"][kernels.POSEIDON_FR.name] for r in big)
+    cases.update(_check_bigfield_kernels(dev, rng))
+    report["bigfield_s"] = time.perf_counter() - t0
+    print(f"bigfield: {report['bigfield_s']:.1f} s")
+    if not all(r["ok"] for r in big):
+        return _fail("a big-field proof differs from the host engine's, was "
+                     "rejected, or launched no NTT or Poseidon-Fr kernel")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks
     if any(c["err"] != 0.0 for c in checks):
         return _fail("a kernel disagrees with its plain version at the "
-                     "Groth16 run's or the zkVM path's shapes")
+                     "Groth16 run's, the zkVM path's or the big-field "
+                     "proves' shapes")
 
     report["smoke_s"] = time.perf_counter() - t_start
     print(f"smoke: {report['smoke_s']:.1f} s, kernel build included")

@@ -2,14 +2,19 @@
 
 Port of scripts/bench_big.py: the repo's benchmark AIR (`build_chain_air`:
 W columns of multiplicative chains over 2^nbits rows, pinned by public
-inputs), blowup 2, GL hash, and that script's FRI steps.
+inputs), blowup 2, GL hash, and that script's FRI steps.  `--hash BN128` or
+`BLS12381` proves with a big-field hash (Merkle trees on the Poseidon-Fr
+kernel); `--steps final` takes the FRI steps of scripts/zkvm_e2e.py's final
+BN128 layer (nbits + 1, then down by 4 while above 5).
 
     python -m eigen_zkvm_tpu_torch.bench_chain --nbits 20 --width 8 \\
         --runs 3 --trace prove_trace.json
+    python -m eigen_zkvm_tpu_torch.bench_chain --nbits 16 --width 12 \\
+        --hash BN128 --steps final
 
 The kernels build first and setup runs once.  Each run proves with
 Engine(cuda), device-resident; every proof's JSON must be byte-identical
-and the first must verify.  EIGEN_ZKVM_SYNC=1 drains the device at every
+and the first must verify (the host verifier's seconds are reported).  EIGEN_ZKVM_SYNC=1 drains the device at every
 stage tick.  (The same-call comparison with eigen_zkvm_tpu's host engine is
 tests/test_torch_prove.py::test_port_on_the_card_matches_host_engine_at_smoke_size.)
 
@@ -119,34 +124,43 @@ def pil_to_json(pil) -> dict:
     }
 
 
-def chain_struct_json(nbits: int, queries: int) -> dict:
-    """The starkStruct of scripts/bench_big.py: blowup 2, FRI steps from
-    nbits + 1 down by 5 while above 4."""
-    steps, cur = [], nbits + 1
-    while cur > 4:
-        steps.append(cur)
-        cur -= 5
-    steps.append(cur)
+STEP_RULES = {"chain": (5, 4),   # scripts/bench_big.py: down by 5 above 4
+              "final": (4, 5)}   # scripts/zkvm_e2e.py:183-188: by 4 above 5
+
+
+def chain_struct_json(nbits: int, queries: int, hash_type: str = "GL",
+                      steps: str = "chain") -> dict:
+    """A starkStruct of blowup 2: FRI steps from nbits + 1 down by the
+    rule's stride while above its floor (STEP_RULES)."""
+    stride, floor = STEP_RULES[steps]
+    fri, cur = [], nbits + 1
+    while cur > floor:
+        fri.append(cur)
+        cur -= stride
+    fri.append(cur)
     return {"nBits": nbits, "nBitsExt": nbits + 1, "nQueries": queries,
-            "verificationHashType": "GL",
-            "steps": [{"nBits": s} for s in steps]}
+            "verificationHashType": hash_type,
+            "steps": [{"nBits": s} for s in fri]}
 
 
-def chain_struct(nbits: int, queries: int):
+def chain_struct(nbits: int, queries: int, hash_type: str = "GL",
+                 steps: str = "chain"):
     from .stark.types import StarkStruct
 
-    return StarkStruct.from_json(chain_struct_json(nbits, queries))
+    return StarkStruct.from_json(chain_struct_json(nbits, queries, hash_type,
+                                                   steps))
 
 
 def write_chain_files(directory: str, nbits: int, width: int,
-                      queries: int) -> dict:
+                      queries: int, hash_type: str = "GL",
+                      steps: str = "chain") -> dict:
     """The chain AIR as the files stark/prove.py::stark_prove reads:
     {"stark_struct", "pil", "const", "cm"} -> path."""
     pil, const_pols, cm_pols = build_chain_air(nbits, width)
     files = {k: os.path.join(directory, f"chain.{k}")
              for k in ("stark_struct", "pil", "const", "cm")}
     with open(files["stark_struct"], "w") as f:
-        json.dump(chain_struct_json(nbits, queries), f)
+        json.dump(chain_struct_json(nbits, queries, hash_type, steps), f)
     with open(files["pil"], "w") as f:
         json.dump(pil_to_json(pil), f)
     const_pols.save(files["const"])
@@ -181,6 +195,9 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=8)
     ap.add_argument("--queries", type=int, default=8)
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--hash", default="GL",
+                    choices=("GL", "BN128", "BLS12381"))
+    ap.add_argument("--steps", default="chain", choices=sorted(STEP_RULES))
     ap.add_argument("--trace", metavar="PATH",
                     help="profile one more prove; Chrome trace to PATH")
     args = ap.parse_args(argv)
@@ -198,13 +215,14 @@ def main(argv=None) -> int:
 
     dev = cuda_device(0)
     report = {"card": card_line(), "nbits": args.nbits, "width": args.width,
-              "queries": args.queries}
+              "queries": args.queries, "hash": args.hash,
+              "steps": args.steps}
     print(f"card: {report['card']}", flush=True)
     report["build_s"] = kernels.build()["seconds"]
     kernels.library()
 
     pil, const_pols, cm_pols = build_chain_air(args.nbits, args.width)
-    ss = chain_struct(args.nbits, args.queries)
+    ss = chain_struct(args.nbits, args.queries, args.hash, args.steps)
     engine = Engine(dev)
     torch.cuda.init()  # the allocator's stats exist only after CUDA's init
     torch.cuda.reset_peak_memory_stats(dev)
@@ -227,9 +245,11 @@ def main(argv=None) -> int:
     for i in range(args.runs):
         proof, wall, stages = prove()
         if not runs:
+            t0 = time.perf_counter()
             report["verified"] = bool(stark_verify(
                 proof, setup.const_root, setup.starkinfo, ss, setup.program))
-        jsons.add(stark_proof_to_json(proof, "GL"))
+            report["verify_s"] = time.perf_counter() - t0
+        jsons.add(stark_proof_to_json(proof, args.hash))
         runs.append({"run": i, "prove_s": wall, "stages": stages,
                      "launches": kernels.counts()})
         print(f"prove {i}: {wall:.3f} s "
@@ -264,7 +284,8 @@ def main(argv=None) -> int:
         if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
     print(f"peak device memory {report['peak_bytes'] / 2**30:.3f} GiB; "
           f"proofs identical {report['identical']}; verified "
-          f"{report['verified']}; JAX-package modules loaded "
+          f"{report['verified']} (host, {report['verify_s']:.3f} s); "
+          f"JAX-package modules loaded "
           f"{report['foreign_modules']}")
     print(json.dumps(report), flush=True)
     ok = report["identical"] and report["verified"] \

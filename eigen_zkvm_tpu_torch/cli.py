@@ -21,8 +21,11 @@ differences:
     load_pk), not a pickle;
   - stark_prove parses --circom, --agg_stage, --norm_stage and --skip_main
     and raises NotImplementedError for them (the verifier-circuit render,
-    ROADMAP queue 1 item 4); --curve_type BLS12381 raises
-    NotImplementedError (BN254 only).
+    ROADMAP queue 1 item 4); groth16's --curve_type BLS12381 raises
+    NotImplementedError (BN254 Groth16 only).
+stark_prove and stark_verify take a starkStruct of any verificationHashType
+the JAX package serves: GL, BN128 or BLS12381 (the big-field Merkle trees
+hash on the Poseidon-over-Fr kernel, csrc/poseidon_fr.cu).
 stark_prove, stark_verify, groth16_setup and groth16_prove run on the
 current CUDA device and raise without one; their --device flag is for the
 tests (--device cpu runs the kernels' plain versions).  groth16_verify,

@@ -13,7 +13,7 @@ import torch
 
 from .groth16 import groth16 as g16
 from .hash.merkle import ZeroMerkleTreeGL
-from .ops import commit, ec, gl
+from .ops import bigint, commit, commit_big, ec, gl
 from .stark.stark_setup import StarkSetup
 
 
@@ -49,15 +49,35 @@ def _tree_levels(tree):
     return elements, levels
 
 
+def _big_tree(tree, device: torch.device):
+    """A JAX-package MerkleTreeBig (BN128 or BLS12381: `levels` as padded
+    int lists, the field's modulus at `tree.PBN.P`) as the port's device
+    tree, its nodes copied."""
+    if tree.PBN.P not in (bigint.FR.modulus, bigint.FR_BLS.modulus):
+        raise ValueError(f"no big-field tree over {tree.PBN.P}")
+    elements = np.asarray(tree.elements, dtype=np.uint64).reshape(
+        tree.height, tree.width)
+    _, offsets = commit_big.level_layout(tree.height)
+    if [len(lvl) for lvl in tree.levels] != [
+            b - a for a, b in zip(offsets, offsets[1:])]:
+        raise ValueError("const tree levels do not match a 16-ary tree")
+    nodes = bigint.to_tensor([v for lvl in tree.levels for v in lvl], device)
+    return commit_big.DeviceMerkleTreeBig(
+        nodes, tree.height, tree.width, gl.from_u64(elements, device))
+
+
 def setup_from_jax(setup, device: torch.device | str) -> StarkSetup:
-    """A JAX-package StarkSetup (GL) as the port's, its const tree on
-    `device`.  The tree's nodes are copied, not rehashed."""
+    """A JAX-package StarkSetup (GL, BN128 or BLS12381) as the port's, its
+    const tree on `device`.  The tree's nodes are copied, not rehashed."""
     device = torch.device(device)
     tree = setup.const_tree
     out = StarkSetup.__new__(StarkSetup)
     out.const_root = setup.const_root
     out.starkinfo = setup.starkinfo
     out.program = setup.program
+    if getattr(tree, "PBN", None) is not None:
+        out.const_tree = _big_tree(tree, device)
+        return out
     if tree.width == 0:
         out.const_tree = ZeroMerkleTreeGL.build(tree.height)
         return out

@@ -1,6 +1,8 @@
 // BN254 field and curve arithmetic for the port's Groth16 kernels (sm_90a):
 // Fq (the base field), Fr (the scalar field), Fq2 = Fq[u]/(u^2 + 1), and G1
-// / G2 points in Jacobian coordinates on y^2 = x^3 + b (a = 0).
+// / G2 points in Jacobian coordinates on y^2 = x^3 + b (a = 0).  A third
+// field, BLS12-381's scalar field (FrBls), serves the big-field Poseidon
+// (poseidon_fr.cu); only its add, sub and mul are used.
 //
 // The device counterpart of ops/bigint.py and ops/ec.py, and of the JAX
 // package's ops/bigint_jax.py and ops/ec_jax.py.  An element is eight 32-bit
@@ -14,8 +16,11 @@
 // running 9-limb value through 64-bit multiply-adds, which the compiler
 // issues as IMAD.WIDE.U32 and 64-bit adds: 580 instructions a product
 // (kernel_probe; PTX mad.lo/mad.hi carry chains compile to 828 here); one
-// conditional subtraction at the end.  Both moduli are below 2^254, so no
-// sum ever leaves 256 bits plus one limb.
+// conditional subtraction at the end.  Every modulus is below 2^255 (BN254's
+// two below 2^254, BLS12-381's r about 0.45 * 2^256), so twice it fits 256
+// bits: the sum of two canonical values does, CIOS keeps t < 2q, and one
+// conditional subtraction reduces either.  A sum of three unreduced values
+// may not fit: reduce after every add.
 //
 // The point formulas are complete, as ec_jax._add is at :111-124: the point
 // at infinity (Z = 0; affine (0, 0), which lies on neither curve), P + P
@@ -30,28 +35,34 @@ namespace bn254 {
 
 constexpr int N = 8;  // limbs of an element
 
-// [0]: Fq, [1]: Fr
-static __constant__ uint32_t kMod[2][N] = {
+// [0]: Fq, [1]: Fr, [2]: BLS12-381's Fr
+static __constant__ uint32_t kMod[3][N] = {
     {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u, 0x8181585du,
      0xb85045b6u, 0xe131a029u, 0x30644e72u},
     {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u, 0x8181585du,
-     0xb85045b6u, 0xe131a029u, 0x30644e72u}};
+     0xb85045b6u, 0xe131a029u, 0x30644e72u},
+    {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u,
+     0x3339d808u, 0x299d7d48u, 0x73eda753u}};
 // R mod q: 1 in Montgomery form
-static __constant__ uint32_t kOne[2][N] = {
+static __constant__ uint32_t kOne[3][N] = {
     {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u, 0x7879462cu,
      0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
     {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u, 0x7879462eu,
-     0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u}};
+     0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
+    {0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau, 0xecbc4ff5u,
+     0x998c4fefu, 0xacc5056fu, 0x1824b159u}};
 // q - 2: Fermat's inverse exponent
-static __constant__ uint32_t kInvExp[2][N] = {
+static __constant__ uint32_t kInvExp[3][N] = {
     {0xd87cfd45u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u, 0x8181585du,
      0xb85045b6u, 0xe131a029u, 0x30644e72u},
     {0xefffffffu, 0x43e1f593u, 0x79b97091u, 0x2833e848u, 0x8181585du,
-     0xb85045b6u, 0xe131a029u, 0x30644e72u}};
+     0xb85045b6u, 0xe131a029u, 0x30644e72u},
+    {0xffffffffu, 0xfffffffeu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u,
+     0x3339d808u, 0x299d7d48u, 0x73eda753u}};
 
 // -q^-1 mod 2^32
 __device__ __forceinline__ uint32_t inv32(int f) {
-  return f == 0 ? 0xe4866389u : 0xefffffffu;
+  return f == 0 ? 0xe4866389u : f == 1 ? 0xefffffffu : 0xffffffffu;
 }
 
 template <int F>
@@ -60,6 +71,7 @@ struct Fp {
 };
 using Fq = Fp<0>;
 using Fr = Fp<1>;
+using FrBls = Fp<2>;
 
 template <int F>
 __device__ __forceinline__ Fp<F> zero() {
@@ -120,7 +132,7 @@ __device__ __forceinline__ Fp<F> add(const Fp<F>& a, const Fp<F>& b) {
     r.v[i] = (uint32_t)c;
     c >>= 32;
   }
-  reduce_once(r);  // q < 2^254: the sum fits 256 bits
+  reduce_once(r);  // 2q < 2^256: the sum fits 256 bits
   return r;
 }
 

@@ -170,6 +170,8 @@ SIGNATURES = {
     "fr_quotient": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
     "r1cs_eval": [_I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _LL, _LL, _LL, _LL,
                   _VP, _VP],
+    "poseidon_fr": [_I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                    _LL, _VP],
 }
 
 
@@ -246,7 +248,12 @@ FR_NTT = Kernel("fr_ntt", "fr_ntt_pass",
 R1CS = Kernel("r1cs", "r1cs_eval", "eigen_zkvm_tpu_torch/csrc/r1cs.cu",
               "eigen_zkvm_tpu/groth16/groth16.py::_witness_h (:315; "
               "_r1cs_csr :283)")
-KERNELS = (NTT, POSEIDON, MSM, EC_BATCH, FR_NTT, R1CS)
+POSEIDON_FR = Kernel("poseidon_fr", "poseidon_fr",
+                     "eigen_zkvm_tpu_torch/csrc/poseidon_fr.cu",
+                     "eigen_zkvm_tpu/native/poseidon_fr.cpp:432 "
+                     "(posfr_hash_batch; hash/poseidon_big.py:132 hash_ex), "
+                     "host code with no pallas_call")
+KERNELS = (NTT, POSEIDON, MSM, EC_BATCH, FR_NTT, R1CS, POSEIDON_FR)
 
 
 def reset_counts():

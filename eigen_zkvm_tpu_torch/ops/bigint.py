@@ -1,7 +1,9 @@
-"""BN254's two prime fields, Fq and Fr, on int64 tensors: the plain versions
-of the device arithmetic in csrc/bn254.cuh.
+"""BN254's two prime fields, Fq and Fr, and BLS12-381's scalar field on int64
+tensors: the plain versions of the device arithmetic in csrc/bn254.cuh.
 
-Port of eigen_zkvm_tpu/ops/bigint_jax.py, for both fields.  An element is
+Port of eigen_zkvm_tpu/ops/bigint_jax.py, for BN254's fields; BLS12-381's
+scalar field (FR_BLS, below 2^255) serves the big-field Poseidon
+(ops/poseidon_fr.py).  An element is
 stored as [..., 4] int64: four u64 words, little-endian, the layout the
 CUDA kernels read and write.  Field elements are kept in Montgomery form
 (R = 2^256); an Fq2 element a0 + a1*u is [..., 2, 4].  Scalars that leave
@@ -37,10 +39,13 @@ LIMB_BITS = 32
 MASK = 0xFFFFFFFF
 P_INT = 21888242871839275222246405745257275088696311157297823662689037894645226208583
 R_INT = 21888242871839275222246405745257275088548364400416034343698204186575808495617
+R_BLS_INT = 52435875175126190479447740508185965837690552500527637822603658699938581184513
 
 
 class Field:
-    """A prime field below 2^254 and its Montgomery constants (R = 2^256)."""
+    """A prime field below 2^255 and its Montgomery constants (R = 2^256).
+    Twice the modulus fits 256 bits, so the sum of two canonical values
+    does and one conditional subtraction reduces it."""
 
     def __init__(self, name: str, modulus: int):
         self.name = name
@@ -61,6 +66,7 @@ class Field:
 
 FQ = Field("Fq", P_INT)
 FR = Field("Fr", R_INT)
+FR_BLS = Field("Fr381", R_BLS_INT)
 
 
 # ---- Python ints <-> word tensors ----

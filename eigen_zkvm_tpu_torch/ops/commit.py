@@ -51,11 +51,41 @@ def build_nodes(elements: torch.Tensor, width: int) -> torch.Tensor:
     return nodes
 
 
-class DeviceMerkleTreeGL:
-    """A GL Merkle tree whose nodes and leaf elements live on a torch device.
+class DeviceTree:
+    """What the device trees share: `device_elements`, the committed
+    [height, width] tensor, and `_nodes`, the node store, both on a torch
+    device; `elements`, the host copy, fetched when a host consumer reads
+    it; pickling (StarkSetup.save), where the tensors travel as numpy and
+    return to the device they came from."""
 
-    `device_elements` is the committed [height, width] tensor; `elements`
-    is its host copy, fetched lazily when a host consumer reads it."""
+    @property
+    def elements(self) -> np.ndarray:
+        if self._elements is None:
+            self._elements = gl.to_u64(self.device_elements)
+        return self._elements
+
+    def to_extend(self) -> np.ndarray:
+        """The committed values on the host, [height, width]."""
+        return self.elements
+
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        d["_device"] = str(self._nodes.device)
+        d["_nodes"] = gl.to_u64(self._nodes).copy()
+        d["device_elements"] = gl.to_u64(self.device_elements).copy()
+        d["_elements"] = None
+        return d
+
+    def __setstate__(self, d):
+        device = torch.device(d.pop("_device"))
+        d["_nodes"] = gl.from_u64(d["_nodes"], device)
+        d["device_elements"] = gl.from_u64(d["device_elements"], device)
+        self.__dict__.update(d)
+
+
+class DeviceMerkleTreeGL(DeviceTree):
+    """A GL Merkle tree whose nodes and leaf elements live on a torch
+    device (DeviceTree)."""
 
     def __init__(self, nodes: torch.Tensor, height: int, width: int,
                  device_elements: torch.Tensor):
@@ -67,16 +97,6 @@ class DeviceMerkleTreeGL:
         self._pref: dict[int, tuple] = {}  # idx -> (row, [sibling digests])
         self.height = height
         self.width = width
-
-    @property
-    def elements(self) -> np.ndarray:
-        if self._elements is None:
-            self._elements = gl.to_u64(self.device_elements)
-        return self._elements
-
-    def to_extend(self) -> np.ndarray:
-        """The committed values on the host, [height, width]."""
-        return self.elements
 
     def root(self) -> np.ndarray:
         if self._root is None:
@@ -111,22 +131,6 @@ class DeviceMerkleTreeGL:
             self.prefetch([idx])
         v, mp = self._pref[idx]
         return v.copy(), [d.copy() for d in mp]
-
-    # pickling (StarkSetup.save): tensors travel as numpy and return to the
-    # device they came from
-    def __getstate__(self):
-        d = self.__dict__.copy()
-        d["_device"] = str(self._nodes.device)
-        d["_nodes"] = gl.to_u64(self._nodes).copy()
-        d["device_elements"] = gl.to_u64(self.device_elements).copy()
-        d["_elements"] = None
-        return d
-
-    def __setstate__(self, d):
-        device = torch.device(d.pop("_device"))
-        d["_nodes"] = gl.from_u64(d["_nodes"], device)
-        d["device_elements"] = gl.from_u64(d["device_elements"], device)
-        self.__dict__.update(d)
 
 
 def extend_and_merkelize(buf: torch.Tensor, nbits: int, nbits_ext: int):

@@ -4,9 +4,9 @@ Port of eigen_zkvm_tpu/ops/fri_jax.py (`fold`, `fold_tree`).  A fold is one
 batched group iNTT (size 2^(pol_bits - step_nbits), over every group and
 extension coordinate at once, on the NTT kernel) and a Horner ladder at the
 per-group point y_g = special_x * shift_inv * w^-g; no [n_x, G] power
-matrix is built.  The fold tree hashes on the Poseidon kernel
-(ops/commit.py); its nodes stay on the device, so a step sends up
-special_x and brings back the 32-byte root.
+matrix is built.  The fold tree hashes on the hash backend's Poseidon
+kernel (ops/commit.py, ops/commit_big.py); its nodes stay on the device,
+so a step sends up special_x and brings back the root.
 """
 from __future__ import annotations
 
@@ -43,11 +43,13 @@ def fold(pol: torch.Tensor, special_x, pol_bits: int, step_nbits: int,
     return res
 
 
-def fold_tree(pol: torch.Tensor, step_nbits: int, next_nbits: int):
+def fold_tree(pol: torch.Tensor, step_nbits: int, next_nbits: int,
+              tree=commit):
     """Commit a folded pol for the next step: leaf i is
-    [pol[j * n_groups + i] for j] flattened (fri.rs layout)."""
+    [pol[j * n_groups + i] for j] flattened (fri.rs layout); `tree` is the
+    hash backend's tree builder (stark/backends.py)."""
     n_groups = 1 << next_nbits
     group_size = (1 << step_nbits) // n_groups
     leaves = pol.reshape(group_size, n_groups, 3).transpose(0, 1).reshape(
         n_groups, group_size * 3)
-    return commit.merkelize(leaves.contiguous())
+    return tree.merkelize(leaves.contiguous())

@@ -14,14 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..hash import merkle
 from ..ops import f3, gl, ntt
 from ..ops import fri as fri_ops
+from .backends import Backend
 
 
 class FRIProof:
     def __init__(self, n_steps: int):
-        # queries[si]: {"root": digest[4] or None, "pol_queries": [...]}
+        # queries[si]: {"root": digest or None, "pol_queries": [...]}
         self.queries = [{"root": None, "pol_queries": []}
                         for _ in range(n_steps)]
         self.last = None  # u64 [n_last, 3]
@@ -49,7 +49,8 @@ def _eval_pol_one(coeffs: list, x) -> tuple:
 
 
 class FRI:
-    def __init__(self, stark_struct):
+    def __init__(self, stark_struct, backend: Backend):
+        self.backend = backend  # the hash's trees, checks and transcript
         self.in_nbits = stark_struct.nBitsExt
         self.max_deg_nbits = stark_struct.nBits
         self.n_queries = stark_struct.nQueries
@@ -76,7 +77,8 @@ class FRI:
                                    shift_inv)
             if si < len(self.steps) - 1:
                 tree = fri_ops.fold_tree(pol, step.nBits,
-                                         self.steps[si + 1].nBits)
+                                         self.steps[si + 1].nBits,
+                                         self.backend.tree)
                 trees.append(tree)
                 proof.queries[si + 1]["root"] = tree.root()
                 transcript.put_root(tree.root())
@@ -138,8 +140,8 @@ class FRI:
                         return False
                 else:
                     vals, mp = proof_item["pol_queries"][i][0]
-                    if not merkle.verify_group_proof(proof_item["root"], mp,
-                                                     ys[i], vals):
+                    if not self.backend.merkle.verify_group_proof(
+                            proof_item["root"], mp, ys[i], vals):
                         return False
                     pgroup_e = _rows(vals)
                 sinv = gl.inv_int(gl.mul_int(shift, gl.exp_int(

@@ -4,7 +4,9 @@ Port of eigen_zkvm_tpu/stark/stark_gen.py::stark_gen in its resident
 configuration (commit, VM and FRI on the device), with the same stage order
 and Fiat-Shamir schedule:
 
-  stage1  commit trace            -> LDE + Merkle (ops/commit.py)
+  stage1  commit trace            -> LDE + Merkle (ops/commit.py, or
+                                     ops/commit_big.py under BN128 /
+                                     BLS12381)
   stage2  plookup H1/H2           -> device segment + stable sorts
   stage3  grand-product Z         -> log-depth F3 prefix product
   stage4  Q = C / Z_H on coset    -> device segment + Q split (iNTT/NTT)
@@ -13,17 +15,18 @@ and Fiat-Shamir schedule:
 
 Every section lives on `engine.device` from the start; the host sees the
 roots, the openings and the query rows (and, on the CPU, the plain h1/h2's
-columns).
+columns).  The hash backend (stark/backends.py: GL, BN128 or BLS12381)
+chooses the Merkle trees and the transcript; nothing else changes with it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..hash.transcript import TranscriptGL
 from ..ops import commit, f3, gl, vm
 from ..utils import structlog
 from ..utils.profiler import Prof
+from .backends import get_backend
 from .engine import Engine
 from .fri import FRI, FRIProof
 
@@ -136,11 +139,11 @@ def calculate_z(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return torch.cat([one, acc[:-1]])
 
 
-def _extend_and_merkelize(ctx, section: str):
-    """LDE a *_n section into its *_2ns twin and Merkle-commit it; the
-    twin is the tree's device tensor."""
-    tree = commit.extend_and_merkelize(ctx.sections[section], ctx.nbits,
-                                       ctx.nbits_ext)
+def _extend_and_merkelize(ctx, section: str, tree_builder):
+    """LDE a *_n section into its *_2ns twin and Merkle-commit it with the
+    hash backend's tree builder; the twin is the tree's device tensor."""
+    tree = tree_builder.extend_and_merkelize(ctx.sections[section],
+                                             ctx.nbits, ctx.nbits_ext)
     ctx.sections[section.replace("_n", "_2ns")] = _committed(ctx, tree)
     return tree
 
@@ -156,9 +159,7 @@ def _committed(ctx, tree) -> torch.Tensor:
 def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
               stark_struct, engine: Engine | None = None,
               prover_addr: str = "", prof: Prof | None = None) -> StarkProof:
-    if stark_struct.verificationHashType != "GL":
-        raise NotImplementedError(
-            f"verificationHashType {stark_struct.verificationHashType}")
+    backend = get_backend(stark_struct.verificationHashType)
     engine = engine or Engine()
     dev = engine.device
     prof = prof or Prof("stark_gen", dev)
@@ -193,12 +194,12 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
         else:
             raise ValueError(f"Invalid public type {pe.polType}")
 
-    transcript = TranscriptGL()
+    transcript = backend.transcript()
     for i in range(n_pub):
         transcript.put_elements([int(x) for x in ctx.publics[i, : public_dims[i]]])
 
     # ---- stage 1
-    tree1 = _extend_and_merkelize(ctx, "cm1_n")
+    tree1 = _extend_and_merkelize(ctx, "cm1_n", backend.tree)
     transcript.put_root(tree1.root())
     ctx.challenges[0] = transcript.get_field()  # u
     ctx.challenges[1] = transcript.get_field()  # defVal
@@ -213,7 +214,7 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
     prof.tick("stage1 trace commit")
 
     # ---- stage 2
-    tree2 = _extend_and_merkelize(ctx, "cm2_n")
+    tree2 = _extend_and_merkelize(ctx, "cm2_n", backend.tree)
     transcript.put_root(tree2.root())
     ctx.challenges[2] = transcript.get_field()  # gamma
     ctx.challenges[3] = transcript.get_field()  # beta
@@ -228,7 +229,7 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
     prof.tick("stage2 h1/h2 commit")
 
     # ---- stage 3
-    tree3 = _extend_and_merkelize(ctx, "cm3_n")
+    tree3 = _extend_and_merkelize(ctx, "cm3_n", backend.tree)
     transcript.put_root(tree3.root())
     ctx.challenges[4] = transcript.get_field()  # vc
     prof.tick("stage3a cm3 commit")
@@ -248,7 +249,7 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
     prof.tick("stage3 z commit")
 
     # ---- stage 4
-    tree4 = commit.merkelize(ctx.sections["cm4_2ns"])
+    tree4 = backend.tree.merkelize(ctx.sections["cm4_2ns"])
     transcript.put_root(tree4.root())
     ctx.challenges[7] = transcript.get_field()  # xi
 
@@ -284,8 +285,8 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
             if hasattr(t, "prefetch"):
                 t.prefetch(idxs)
 
-    fri_proof = FRI(stark_struct).prove(transcript, ctx.sections["f_2ns"],
-                                        query_pol, prefetch=prefetch)
+    fri_proof = FRI(stark_struct, backend).prove(
+        transcript, ctx.sections["f_2ns"], query_pol, prefetch=prefetch)
     prof.tick("fri")
     prof.done()
 

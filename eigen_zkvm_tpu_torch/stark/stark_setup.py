@@ -1,16 +1,18 @@
 """STARK preprocessing on the port: const-pol LDE + Merkle tree + compile.
 
 Port of eigen_zkvm_tpu/stark/stark_setup.py (starky stark_setup.rs: the
-const root is the verification key), GL hash only.  The const tree is built
-by ops/commit.py on the engine's device and stays there; the starkinfo
-compiler is the port's copy (stark/starkinfo.py).
+const root is the verification key).  The const tree is built by the hash
+backend's tree builder (stark/backends.py: ops/commit.py for GL,
+ops/commit_big.py for BN128 and BLS12381) on the engine's device and stays
+there; the starkinfo compiler is the port's copy (stark/starkinfo.py).
 """
 from __future__ import annotations
 
 import copy
 import pickle
 
-from ..ops import commit, gl
+from ..ops import gl
+from .backends import get_backend
 from .engine import Engine
 from .starkinfo import Program, StarkInfo
 
@@ -20,11 +22,9 @@ class StarkSetup:
                  engine: Engine | None = None, global_l1=None):
         if const_pols.nPols != pil.nConstants:
             raise ValueError("const pols do not match the PIL")
-        if stark_struct.verificationHashType != "GL":
-            raise NotImplementedError(
-                f"verificationHashType {stark_struct.verificationHashType}")
+        backend = get_backend(stark_struct.verificationHashType)
         engine = engine or Engine()
-        self.const_tree = commit.extend_and_merkelize(
+        self.const_tree = backend.tree.extend_and_merkelize(
             gl.from_u64(const_pols.buffer, engine.device), stark_struct.nBits,
             stark_struct.nBitsExt)
         self.const_root = self.const_tree.root()

@@ -1,7 +1,8 @@
 """STARK verifier: transcript replay + constraint check + FRI re-fold.
 
 Port of eigen_zkvm_tpu/stark/stark_verify.py with the one-point verifier
-executor of eigen_zkvm_tpu/stark/vm.py (`execute_code_one`), GL hash only.
+executor of eigen_zkvm_tpu/stark/vm.py (`execute_code_one`), for every hash
+backend (stark/backends.py).
 It replays the Fiat-Shamir schedule, runs the compiled verifier code at xi,
 checks Q * Z_H == C (eSTARK eq. 30), then checks every Merkle query proof
 and the FRI fold chain.  Host code on Python ints (ops/f3.py `*_int`).
@@ -10,9 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..hash import merkle
-from ..hash.transcript import TranscriptGL
 from ..ops import f3, gl
+from .backends import get_backend
 from .fri import FRI
 from .types import parse_pil_number
 
@@ -80,10 +80,8 @@ def execute_code_one(ctx_vals: dict, code: list):
 
 
 def stark_verify(proof, const_root, starkinfo, stark_struct, program) -> bool:
-    if stark_struct.verificationHashType != "GL":
-        raise NotImplementedError(
-            f"verificationHashType {stark_struct.verificationHashType}")
-    transcript = TranscriptGL()
+    backend = get_backend(stark_struct.verificationHashType)
+    transcript = backend.transcript()
     nbits = stark_struct.nBits
     N = 1 << nbits
     extend_bits = stark_struct.nBitsExt - nbits
@@ -137,7 +135,7 @@ def stark_verify(proof, const_root, starkinfo, stark_struct, program) -> bool:
     def check_query(query, idx):
         for qi, root in enumerate(roots):
             vals, mp = query[qi]
-            if not merkle.verify_group_proof(root, mp, idx, vals):
+            if not backend.merkle.verify_group_proof(root, mp, idx, vals):
                 return None
         xx = (gl.mul_int(gl.SHIFT, gl.exp_int(w_full, idx)), 0, 0)
         ctx_q = dict(common, consts=query[4][0],
@@ -149,4 +147,5 @@ def stark_verify(proof, const_root, starkinfo, stark_struct, program) -> bool:
                          f3.sub_int(xx, wxi))))
         return [execute_code_one(ctx_q, program.verifier_query_code.first)]
 
-    return FRI(stark_struct).verify(transcript, proof.fri_proof, check_query)
+    return FRI(stark_struct, backend).verify(transcript, proof.fri_proof,
+                                             check_query)

@@ -372,7 +372,8 @@ def test_port_on_the_card_matches_host_engine_at_smoke_size(monkeypatch,
     t0 = time.perf_counter()
     port_prove.stark_prove(*args, zkin_out=port_out)   # the default: cuda
     t1 = time.perf_counter()
-    assert all(kernels.counts()[k] > n for k, n in before.items())
+    assert all(kernels.counts()[k.name] > before[k.name]
+               for k in (kernels.NTT, kernels.POSEIDON))   # the GL path's
     host_prove.stark_prove(*args, zkin_out=host_out)
     t2 = time.perf_counter()
     print(f"load + setup + prove + verify: port {t1 - t0:.3f} s, host "
