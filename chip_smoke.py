@@ -99,10 +99,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
               Poseidon-over-Fr kernel (csrc/poseidon_fr.cu), whose count
               must rise in each prove; each zkin's sha256 must equal
               BIGFIELD_SHA256, the host engine's digest.  Then the kernel
-              against its plain version at the proves' shapes: the 2^17
-              t = 5 leaf permutations, a 2^13-node t = 17 level (BN128 and
-              BLS12381), 2^14 rows of width 375 (t = 17 and t = 14 in one
-              sponge), 0 and r - 1 mixed in.
+              against its plain version at the proves' shapes, each on the
+              group size ops/poseidon_fr.plan picks: the 2^17 t = 5 leaf
+              permutations, a 2^13-node t = 17 level (BN128 and
+              BLS12381), the 2^9-node and the 1-node t = 17 levels (the
+              latency cases), 2^14 rows of width 375 (t = 17 and t = 14 in
+              one sponge), 0 and r - 1 mixed in; then every width
+              t = 2..17 of both fields at 1,001 states on every group size
+              the width allows and on plan's pick (every instance of the
+              kernel), exactly (the plain version on 81 of the rows);
+              then the leaves' and each level's time in one BN128 tree
+              over 2^17 rows of width 12 and of width 0
+              (bench_poseidon_fr.tree_split).
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -245,6 +253,13 @@ MEMWALK_TAPE, MEMWALK_NBITS, MEMWALK_RAM = [450, 48], 10, 64
 # tests/test_torch_prove_bigfield.py::test_host_engine_gives_the_pinned_bigfield_digests
 # recomputes them.
 BIGFIELD_NBITS, BIGFIELD_QUERIES, BIGFIELD_WIDTH = 16, 8, 12
+# Poseidon-Fr's every-width check: a batch that is no multiple of a group
+# (1-32 threads) or a block (32-128), and the rows the plain version
+# computes: the three edge states, one row in 16, and the last 17 (the
+# last group, warp and block)
+FR_EVERY_B = 1001
+FR_EVERY_ROWS = sorted({0, 1, 2, *range(0, FR_EVERY_B, 16),
+                        *range(FR_EVERY_B - 17, FR_EVERY_B)})
 BIGFIELD_SHA256 = {
     ("chain", "BN128"):
         "581f2c11d3ff07b0f6a474922eef87110103dafed9ef2f5a5b224277c18f7aa6",
@@ -1077,7 +1092,8 @@ def _bigfield(dev) -> list:
 def _fr_states(dev, field, B: int, t: int, seed: int):
     """(inp [B, t-1, 4], init [B, 4]) of random values below 2^253 (or
     2^254 for BLS12-381's r), made on the card, with the first three states
-    all 0, all r - 1, and 0 / r - 1 alternating."""
+    all 0, all r - 1, and 0 / r - 1 alternating (fewer states: the last of
+    those)."""
     import torch
 
     from eigen_zkvm_tpu_torch.ops import bigint as bi
@@ -1088,9 +1104,10 @@ def _fr_states(dev, field, B: int, t: int, seed: int):
                        device=dev, generator=gen)
     st[:, :, 3] &= (1 << (61 if field is bi.FR else 62)) - 1
     edge = bi.to_tensor([0, field.modulus - 1], dev)
-    st[0] = edge[0]
-    st[1] = edge[1]
-    st[2] = edge[torch.arange(t, device=dev) & 1]
+    lanes = torch.arange(t, device=dev)
+    edges = (edge[lanes * 0], edge[lanes * 0 + 1], edge[lanes & 1])
+    for i, e in enumerate(edges[3 - min(B, 3):]):
+        st[i] = e
     return st[:, 1:].contiguous(), st[:, 0].contiguous()
 
 
@@ -1104,6 +1121,8 @@ def _fr_products(t: int, n_p: int) -> int:
 def _check_bigfield_kernels(dev, rng) -> dict:
     """Phase 9's shapes: the Poseidon-Fr kernel against permute_plain on
     the card, bit for bit, with both times and its bound."""
+    import torch
+
     from eigen_zkvm_tpu_torch import kernels
     from eigen_zkvm_tpu_torch.hash import linearhash_big as lh
     from eigen_zkvm_tpu_torch.ops import bigint as bi
@@ -1112,21 +1131,65 @@ def _check_bigfield_kernels(dev, rng) -> dict:
 
     cases = []
     n = 1 << (BIGFIELD_NBITS + 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, field, B, t in (
             (f"poseidon_fr BN128 leaves 2^{BIGFIELD_NBITS + 1} t=5", bi.FR,
              n, 5),
             ("poseidon_fr BN128 level 2^13 t=17", bi.FR, 1 << 13, 17),
             ("poseidon_fr BLS12381 level 2^13 t=17", bi.FR_BLS, 1 << 13,
-             17)):
+             17),
+            ("poseidon_fr BN128 level 2^9 t=17", bi.FR, 1 << 9, 17),
+            ("poseidon_fr BN128 level of 1 node t=17", bi.FR, 1, 17)):
         inp, init = _fr_states(dev, field, B, t, B + t)
         n_out = poseidon_fr.poseidon(field).hash_index + 1
         n_p = poseidon_fr.poseidon(field).n_rounds_p(t)
+        lanes, threads = poseidon_fr.plan(t, n_p, B, sms)
         cases.append(_hold(
-            label, lambda: poseidon_fr.permute(field, t, inp, init, n_out),
+            f"{label} (G={lanes}, {threads} threads a block)",
+            lambda: poseidon_fr.permute(field, t, inp, init, n_out),
             lambda: poseidon_fr.permute_plain(field, t, inp, init, n_out),
             10, 0, 32 * B * (t + n_out),
             _fr_products(t, n_p) * B * IMAD_BN254))
         del inp, init
+    # every width of both fields on every group size it allows and on
+    # plan's pick (every instance of the kernel), at a batch that is no
+    # multiple of a group or a block, exactly, against one plain call a
+    # width on FR_EVERY_ROWS (permutations do not interact); one case a
+    # field, whose ms, plain_ms and bound sum plan's pick and the plain
+    # call over the widths
+    B, rows = FR_EVERY_B, FR_EVERY_ROWS
+    for field in (bi.FR, bi.FR_BLS):
+        errs, ms, plain_ms, imads, nbytes, launches = [], 0.0, 0.0, 0, 0, 0
+        for t in range(2, 18):
+            inp, init = _fr_states(dev, field, B, t, 7 * t)
+            n_p = poseidon_fr.poseidon(field).n_rounds_p(t)
+            want, p_ms = _timed_once(lambda: poseidon_fr.permute_plain(
+                field, t, inp[rows], init[rows], t))
+            plain_ms += p_ms
+            pick = poseidon_fr.plan(t, n_p, B, sms)[0]
+            for lanes in poseidon_fr.lane_choices(t) + (None,):
+                def run():
+                    return poseidon_fr.permute(field, t, inp, init, t, lanes)
+                errs.append(_max_abs_err(run()[rows], want))
+                k_ms = _time_ms(run, 3)
+                launches += 1
+                print(f"  poseidon_fr {field.name} t={t} B={B} G="
+                      f"{lanes or pick}{'' if lanes else ' (plan)'}: "
+                      f"{k_ms:.3f} ms, max_abs_err {errs[-1]}")
+            ms += k_ms  # the last: plan's pick
+            imads += _fr_products(t, n_p) * B * IMAD_BN254
+            nbytes += 32 * B * 2 * t
+            print(f"  poseidon_fr {field.name} t={t} plain on "
+                  f"{len(rows)} rows: {p_ms:.3f} ms", flush=True)
+        b = _bound(nbytes, imads)
+        cases.append(dict(
+            label=f"poseidon_fr {field.name} every t=2..17 x every group "
+                  f"size and plan's pick, B={B} ({launches} launches held; "
+                  f"ms and bound: plan's pick, plain_ms: the plain version "
+                  f"on {len(rows)} rows, summed over the widths)",
+            err=max(errs), ms=ms, plain_ms=plain_ms, **b))
+        print(f"{cases[-1]['label']}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, max_abs_err {max(errs)}", flush=True)
     # 2^14 rows of width 375: 125 Fr a row, seven t = 17 calls and one
     # t = 14 in one sponge
     w, H = ZKVM_WIDTH, 1 << 14
@@ -1143,6 +1206,25 @@ def _check_bigfield_kernels(dev, rng) -> dict:
         lambda: lh.hash_leaves_plain(bi.FR, rows), 10, 0,
         8 * H * w + 32 * H, prods * H * IMAD_BN254))
     return {kernels.POSEIDON_FR.name: cases}
+
+
+def _bigfield_split(dev) -> list:
+    """The leaves' and each level's time in one BN128 tree over 2^17
+    random rows of width 12 and one of width 0 (bench_poseidon_fr.
+    tree_split: CUDA events at build_nodes' on_call, the mean of three
+    builds after a warm-up)."""
+    from eigen_zkvm_tpu_torch import bench_poseidon_fr
+
+    out = []
+    for width in (BIGFIELD_WIDTH, 0):
+        sp = bench_poseidon_fr.tree_split(dev, width)
+        out.append(sp)
+        print(f"  tree 2^17 x {width} (BN128), {sp['launches']} Poseidon-Fr"
+              f" launches: {sp['build_ms']:.3f} ms; leaves (and the store's"
+              f" zeroing) {sp['steps_ms'][0]:.3f} ms; "
+              + "; ".join(f"level of {n} {ms:.3f} ms" for n, ms in
+                          zip(sp["levels"], sp["steps_ms"][1:])), flush=True)
+    return out
 
 
 def main() -> int:
@@ -1394,6 +1476,7 @@ def main() -> int:
     launches[kernels.POSEIDON_FR.name] = sum(
         r["launches"][kernels.POSEIDON_FR.name] for r in big)
     cases.update(_check_bigfield_kernels(dev, rng))
+    report["bigfield_split"] = _bigfield_split(dev)
     report["bigfield_s"] = time.perf_counter() - t0
     print(f"bigfield: {report['bigfield_s']:.1f} s")
     if not all(r["ok"] for r in big):

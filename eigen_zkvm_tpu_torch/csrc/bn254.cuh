@@ -208,6 +208,61 @@ __device__ __forceinline__ Fp<F> sqr(const Fp<F>& a) {
   return mul(a, a);
 }
 
+// a^2 / R mod q by separated operand scanning: the 28 cross products once,
+// doubled by a shift, the 8 squares added, then the Montgomery reduction's
+// 64 products: 100 limb products against mul's 128.  For a caller that
+// squares often (the big-field Poseidon's S-box); mul and sqr above are
+// what the Groth16 kernels use.
+template <int F>
+__device__ __forceinline__ Fp<F> sqr_sos(const Fp<F>& a) {
+  uint32_t t[2 * N];
+#pragma unroll
+  for (int i = 0; i < 2 * N; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < N - 1; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) {
+      c = (uint64_t)a.v[i] * a.v[j] + t[i + j] + (c >> 32);
+      t[i + j] = (uint32_t)c;
+    }
+    t[i + N] = (uint32_t)(c >> 32);
+  }
+  // twice the cross sum: below a^2 < q^2 < 2^510, so no bit leaves t
+#pragma unroll
+  for (int i = 2 * N - 1; i > 0; --i) t[i] = (t[i] << 1) | (t[i - 1] >> 31);
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint64_t p = (uint64_t)a.v[i] * a.v[i];
+    c += (uint64_t)t[2 * i] + (uint32_t)p;
+    t[2 * i] = (uint32_t)c;
+    c = (c >> 32) + t[2 * i + 1] + (p >> 32);
+    t[2 * i + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  // Montgomery reduction; `hi` carries into t[i + N] from the row before
+  uint32_t hi = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t m = t[i] * inv32(F);
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      c = (uint64_t)m * kMod[F][j] + t[i + j] + (c >> 32);
+      t[i + j] = (uint32_t)c;
+    }
+    const uint64_t s = (uint64_t)t[i + N] + (c >> 32) + hi;
+    t[i + N] = (uint32_t)s;
+    hi = (uint32_t)(s >> 32);
+  }
+  Fp<F> r;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.v[i] = t[N + i];
+  reduce_once(r);  // (a^2 + m q) / R < 2q < 2^256: hi ends 0
+  return r;
+}
+
 // a^(q-2) = a^-1 (0 -> 0), square-and-multiply from the top bit; the
 // loops stay rolled (an unrolled inversion is 500 inlined products)
 template <int F>

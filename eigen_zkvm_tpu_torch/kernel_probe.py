@@ -2,6 +2,7 @@
 IMAD rate and the share of the integer issue slots each kernel fills.
 
     python -m eigen_zkvm_tpu_torch.kernel_probe        # needs one GPU + nvcc
+    python -m eigen_zkvm_tpu_torch.kernel_probe --poseidon-fr   # that only
 
 It builds the kernels, disassembles the library with `cuobjdump -sass`,
 counts each kernel's instructions by class (with every loop, found by its
@@ -23,6 +24,21 @@ each hold one loop whose body is one primitive, so the body's count is the
 instructions of one Fq product, Fq square, Fq2 product, mixed addition (G1,
 G2; its body holds the inlined doubling of P + P as well) and G1 doubling;
 every loop of the MSM and fixed-base kernels is listed with the rest.
+
+Poseidon-Fr (csrc/poseidon_fr.cu): each instance (field; the one-thread
+kernel, or the group kernel with E lanes a thread) is counted by class,
+with its local-memory loads and stores (LDL, STL: none, when no state
+array lives in local memory), and run at the main-path shape it serves (t
+and group size G).  Its loop with the fewest IMAD.WIDE (of those with a whole
+product's, 100 or more) is the mix loop, whose body is E products (one in
+the one-thread kernel): its count over E
+is the instructions of one product, and a permutation's thread executes
+that times the products on its chain (ops/poseidon_fr.chain_products; the
+partial rounds' shuffle-adds priced as that function prices them).  The
+loop layout ptxas gives the rest (the partial-round loop's address range
+spans the round loop's) does not allow the exact count GL's kernel gets.
+`--poseidon-fr` builds the big-field prover's sources alone and runs this
+loop only.
 """
 from __future__ import annotations
 
@@ -90,6 +106,7 @@ def _hist(instrs) -> dict:
     h = collections.Counter(_klass(op) for _, op, _ in instrs)
     h["imad_wide"] = sum(op.startswith("IMAD.WIDE") for _, op, _ in instrs)
     h["imad"] = sum(op.split(".")[0] == "IMAD" for _, op, _ in instrs)
+    h["local"] = sum(op.split(".")[0] in ("LDL", "STL") for _, op, _ in instrs)
     h["total"] = len(instrs)
     return dict(h)
 
@@ -169,6 +186,75 @@ def imad_issue(dev) -> dict:
             "clock_ghz": rate["clock_ghz"], "per_s": rate["per_s"]}
 
 
+# instance (E; 0 the one-thread kernel) -> the main-path shapes it serves:
+# (t, lanes, B)
+POSEIDON_FR_SHAPES = {0: [(5, 1, 1 << 17), (17, 1, 1 << 14)],
+                      5: [(17, 4, 1 << 13)], 3: [(17, 8, 1 << 11)],
+                      2: [(17, 16, 1 << 10)], 1: [(17, 32, 1 << 9)]}
+
+
+def fr_per_product(summary: dict, products: int, key: str = "total"):
+    """Instructions (of `key`) of one product in a Poseidon-Fr instance: its
+    mix loop's (the loop with the fewest IMAD.WIDE among those holding a
+    whole product, at least 100 of them: the conversion out of Montgomery
+    form multiplies by a constant ptxas thins; `products` products a trip)
+    over `products`; None without such a loop."""
+    loops = [lp for lp in summary["loops"] if lp["imad_wide"] >= 100]
+    if not loops:
+        return None
+    return min(loops, key=lambda lp: lp["imad_wide"]).get(key, 0) / products
+
+
+def poseidon_fr_loop(sass: dict, dev, slots_per_s: float) -> list:
+    """Each Poseidon-Fr instance: its SASS by class, local-memory loads and
+    stores, instructions a product and a permutation, and its integer
+    issue share at the shapes it serves."""
+    import torch
+
+    from .ops import bigint as bi
+    from .ops import poseidon_fr
+
+    rows = []
+    for name, s in sorted(sass.items()):
+        m = (re.search(r"poseidon_fr_kernelILi(\d+)ELi(\d+)E", name)
+             or re.search(r"poseidon_fr_thread_kernelILi(\d+)E", name))
+        if not m:
+            continue
+        field = bi.FR if m.group(1) == "1" else bi.FR_BLS
+        E = int(m.group(2)) if m.re.groups == 2 else 0
+        kind = f"E={E}" if E else "one thread"
+        per = fr_per_product(s, max(E, 1))
+        per_int = fr_per_product(s, max(E, 1), "int")
+        print(f"poseidon_fr {field.name} {kind}: static {s['static']}; "
+              f"local-memory loads and stores {s['static'].get('local', 0)};"
+              f" instructions a product {per} ({per_int} integer)")
+        for t, g, B in POSEIDON_FR_SHAPES.get(E, []):
+            n_p = poseidon_fr.poseidon(field).n_rounds_p(t)
+            inp = torch.zeros((B, t - 1, 4), dtype=torch.int64, device=dev)
+            inp[..., 0] = 7
+            init = torch.zeros((B, 4), dtype=torch.int64, device=dev)
+            ms = _time_ms(lambda: poseidon_fr.permute(field, t, inp, init, 1,
+                                                      lanes=g), 10)
+            row = {"field": field.name, "E": E, "t": t, "lanes": g, "B": B,
+                   "ms": ms, "local": s["static"].get("local", 0),
+                   "static": s["static"]["total"],
+                   "per_product": per}
+            if per is not None:
+                chain = poseidon_fr.chain_products(t, n_p, g)
+                warps = -(-B * g // 32)
+                row.update(thread_chain=chain * per,
+                           warp_issue_per_perm=chain * per * g / 32,
+                           issue_share=chain * per_int * warps
+                           / (ms * 1e-3) / (slots_per_s / 32))
+                print(f"  t={t} G={g} B={B}: {ms:.3f} ms; a thread's chain "
+                      f"{chain:.0f} products, {chain * per:.0f} instructions;"
+                      f" {chain * per * g / 32:.0f} warp instructions a "
+                      f"permutation; integer issue share "
+                      f"{row['issue_share']:.3f}")
+            rows.append(row)
+    return rows
+
+
 def _time_ms(fn, reps: int = 20) -> float:
     import torch
 
@@ -198,7 +284,7 @@ def bn254_bodies(sass: dict) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import numpy as np
     import torch
 
@@ -206,16 +292,29 @@ def main() -> int:
     from .ops import gl, ntt, poseidon
     from .utils.devices import card_line, cuda_device
 
+    only_fr = "--poseidon-fr" in (sys.argv[1:] if argv is None else argv)
     dev = cuda_device(0)
     card = card_line()
     print(f"card: {card}")
-    info = kernels.build(force=True)
+    if only_fr:
+        info = kernels.load(("poseidon_fr.cu", "imad_probe.cu"))
+        lib_path = info["lib"]
+    else:
+        info = kernels.build(force=True)
+        lib_path = kernels.LIB_PATH
     print(f"build: {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.split("info    :")[-1].strip())
     sass = {name: summarize(ins)
-            for name, ins in disassemble(kernels.LIB_PATH).items()}
+            for name, ins in disassemble(lib_path).items()}
+    if only_fr:
+        wide = imad_rate(dev, True)
+        slots = wide["sms"] * SM_COUNT_LANES * wide["clock_ghz"] * 1e9
+        report = {"card": card, "imad_wide": wide,
+                  "poseidon_fr": poseidon_fr_loop(sass, dev, slots)}
+        print(json.dumps(report))
+        return 0
     for name, s in sass.items():
         print(f"sass {name}: static {s['static']} top {s['top']}")
         for lp in s["loops"]:
@@ -255,7 +354,8 @@ def main() -> int:
               "imad_issue": issue,
               "sass": sass, "slots_per_s": slots_per_s,
               "bn254": report_bn254}
-    pos = next((s for n, s in sass.items() if "poseidon" in n), None)
+    pos = next((s for n, s in sass.items() if "poseidon_gl_kernel" in n),
+               None)
     if pos is not None:
         B = 1 << 20
         st = rand(B, 12)
@@ -270,6 +370,7 @@ def main() -> int:
               f"integer issue share {share:.3f}")
         report["poseidon"] = {"ms": ms, "int_per_perm": per_perm,
                               "all_per_perm": all_perm, "issue_share": share}
+    report["poseidon_fr"] = poseidon_fr_loop(sass, dev, slots_per_s)
     x = rand(1 << 20, 8)
     ms = _time_ms(lambda: ntt.interpolate(x, 20, 21))
     report["ntt_interpolate_ms"] = ms

@@ -6,7 +6,8 @@ into one shared library with a plain C interface, in
 tensor first reaches a kernel.  Each object keeps the stamp of what it was
 built from (the source and the csrc headers it includes); a later build
 recompiles only the sources whose stamp changed, all at once, and relinks.
-The library is loaded with ctypes; every pointer
+`load(sources)` builds and loads the sources named alone, for a tool that
+times a few kernels.  The library is loaded with ctypes; every pointer
 and the stream go in as `c_void_p`, every C entry returns
 `cudaGetLastError()` after its launch, and a launch that does not return 0
 raises `KernelError` (a refused launch never runs, and a later synchronize
@@ -94,9 +95,10 @@ def _write(path: str, text: str):
 
 
 def build(force: bool = False, csrc: str = CSRC, build_dir: str = BUILD_DIR,
-          nvcc: str | None = None) -> dict:
-    """Compile what is stale of csrc/*.cu, one object a source kept in
-    `build_dir`, and link them all into the library there.  A source is
+          nvcc: str | None = None, sources=None) -> dict:
+    """Compile what is stale of csrc/*.cu (or of the `sources` named, file
+    names in csrc), one object a source kept in `build_dir`, and link them
+    all into the library there.  A source is
     stale when its object is missing or was built from other contents of
     it or of a header it includes (`source_stamp`, kept beside the object),
     so an edit of one .cu recompiles that one and an edit of a .cuh the
@@ -105,6 +107,11 @@ def build(force: bool = False, csrc: str = CSRC, build_dir: str = BUILD_DIR,
     names), "log"}; `log` holds ptxas's register and shared-memory report
     of the compiled ones."""
     srcs = sorted(glob.glob(os.path.join(csrc, "*.cu")))
+    if sources is not None:
+        missing = set(sources) - {os.path.basename(src) for src in srcs}
+        if missing:
+            raise KernelError(f"no {sorted(missing)} in {csrc}")
+        srcs = [src for src in srcs if os.path.basename(src) in sources]
     stamps = {src: source_stamp(src, csrc) for src in srcs}
 
     def obj(src):
@@ -170,8 +177,8 @@ SIGNATURES = {
     "fr_quotient": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
     "r1cs_eval": [_I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _LL, _LL, _LL, _LL,
                   _VP, _VP],
-    "poseidon_fr": [_I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
-                    _LL, _VP],
+    "poseidon_fr": [_I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+                    _VP, _I, _LL, _VP],
 }
 
 
@@ -192,14 +199,30 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+def load(sources=None) -> dict:
+    """Build and load the library every later launch goes through: of the
+    `sources` named (file names in csrc) alone, in a directory of their own
+    under BUILD_DIR (a tool that times some kernels builds in seconds what
+    the whole library takes minutes for), or of all of them.  With no
+    `sources`, a library already loaded stays.  Returns build()'s report,
+    with the library's path under "lib"."""
     global _lib
     with _lock:
-        if _lib is None:
-            build()
-            _lib = bind(ctypes.CDLL(LIB_PATH))
-        return _lib
+        if sources is None and _lib is not None:
+            return {"seconds": 0.0, "compiled": [], "log": "", "lib": None}
+        build_dir = BUILD_DIR if sources is None else os.path.join(
+            BUILD_DIR, "+".join(sorted(sources)))
+        info = build(build_dir=build_dir, sources=sources)
+        info["lib"] = os.path.join(build_dir, os.path.basename(LIB_PATH))
+        _lib = bind(ctypes.CDLL(info["lib"]))
+        return info
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built and loaded first if needed."""
+    if _lib is None:
+        load()
+    return _lib
 
 
 def check(name: str, err: int):

@@ -41,18 +41,41 @@ def level_layout(height: int):
     return counts, offsets
 
 
-def build_nodes(field: bi.Field, elements: torch.Tensor) -> torch.Tensor:
-    """The node store of the tree over `elements` [height, width]."""
-    height = elements.shape[0]
+def build_nodes(field: bi.Field, elements: torch.Tensor,
+                on_call=None) -> torch.Tensor:
+    """The node store of the tree over `elements` [height, width].
+
+    Rows of width <= 4 pack with no permutation (a width-0 section: all
+    zero), so their leaf digests are compared, and where every one is the
+    same each level is one value repeated and, after a zero-padded group,
+    one other: all its groups but the last are equal.  Such a level hashes
+    its first and its last group only, and the first's digest fills the
+    rest: the same nodes for at most two permutations a level.  Wider rows
+    always pass through a permutation and are not compared.  `on_call()`,
+    where given, runs after the leaves' hash and after each level's (a
+    benchmark's CUDA events)."""
+    height, width = elements.shape
     counts, offsets = level_layout(height)
     nodes = torch.zeros((offsets[-1], 4), dtype=torch.int64,
                         device=elements.device)
-    nodes[:height] = lh.hash_leaves(field, elements)
+    leaves = lh.hash_leaves(field, elements)
+    nodes[:height] = leaves
+    if on_call:
+        on_call()
+    equal = (width <= 4 and height > 16
+             and bool((leaves == leaves[:1]).all()))
     for lvl in range(len(counts) - 1):
         off, nxt = offsets[lvl], offsets[lvl + 1]
         groups = nodes[off : nxt].view(-1, 16, 4)
-        nodes[nxt : nxt + groups.shape[0]] = poseidon_fr.hash_fr(field,
-                                                                 groups)
+        n = groups.shape[0]
+        if equal and n > 2:
+            ends = poseidon_fr.hash_fr(field, groups[:: n - 1])
+            nodes[nxt : nxt + n - 1] = ends[0]
+            nodes[nxt + n - 1] = ends[1]
+        else:
+            nodes[nxt : nxt + n] = poseidon_fr.hash_fr(field, groups)
+        if on_call:
+            on_call()
     return nodes
 
 

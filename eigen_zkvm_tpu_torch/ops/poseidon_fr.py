@@ -9,13 +9,17 @@ on the tables of hash/poseidon_big.py::PoseidonBig.device_tables.
 
 `permute(field, t, inp, init, n_out)` launches the kernel for CUDA tensors
 and runs the plain version (`permute_plain`, tensor code on ops/bigint.py)
-for CPU tensors.  `field` is bigint.FR (BN128) or bigint.FR_BLS
-(BLS12381).  The schedule is that of PoseidonBig.hash_ex: the first add of
-C, half - 1 full rounds with M, one with P, n_p partial rounds with the
-sparse S (one S-box on lane 0; new lane 0 = sum S * state; lanes k >= 1 +=
-S * s0), half - 1 full rounds with M, a last full round with no constant.
+for CPU tensors.  The kernel carries a permutation on one thread or on a
+group of threads, whose size `plan` picks from the width and the batch.
+`field` is bigint.FR (BN128) or bigint.FR_BLS (BLS12381).  The schedule
+is that of PoseidonBig.hash_ex: the first add of C, half - 1 full rounds
+with M, one with P, n_p partial rounds with the sparse S (one S-box on
+lane 0; new lane 0 = sum S * state; lanes k >= 1 += S * s0), half - 1
+full rounds with M, a last full round with no constant.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,6 +32,71 @@ _HALF = N_ROUNDS_F // 2
 # the kernel's field index and the Poseidon instance of each field
 _FIELDS = {bi.FR: (0, poseidon_bn128.POSEIDON),
            bi.FR_BLS: (1, poseidon_bls12381.POSEIDON)}
+
+
+# threads a permutation the kernel takes (1: the one-thread kernel, any
+# width; more: the group kernel), and the most state lanes one thread of a
+# group may own (its instances own 1, 2, 3 or 5)
+LANES = (1, 2, 4, 8, 16, 32)
+MAX_OWNED = 5
+# The warps a scheduler below which a permutation's chain runs no faster:
+# on the H100 a lone warp's chain took 1.1-1.3 times as long as the same
+# chain among warps that kept every scheduler busy (bench_poseidon_fr
+# --sweep: t = 17 at one state against 2^14, every group size)
+LATENCY = 1.2
+SCHEDULERS_PER_SM = 4
+SHUFFLE_ADD = 0.125   # a shuffle of 8 words and an add, in products
+
+
+def lane_choices(t: int) -> tuple:
+    """The group sizes the kernel takes at width t: one thread (any t), or
+    groups where each thread owns at most MAX_OWNED lanes and no group is
+    twice as wide as the state."""
+    return tuple(g for g in LANES
+                 if g == 1 or (-(-t // g) <= MAX_OWNED and g < 2 * t))
+
+
+def chain_products(t: int, n_p: int, lanes: int) -> float:
+    """Field products on one thread's serial chain for a permutation of
+    width t on a group of `lanes` threads, each owning E = ceil(t / lanes)
+    state lanes: in each of the 8 full rounds E S-boxes (3 products) and E
+    rows of the mix (t products); in each partial round s0's S-box, E terms
+    and E updates, and log2(lanes) shuffle-adds for the sum."""
+    E = -(-t // lanes)
+    return (8 * E * (3 + t) + n_p * (3 + 2 * E)
+            + n_p * math.log2(lanes) * SHUFFLE_ADD)
+
+
+def plan(t: int, n_p: int, B: int, sms: int = 132) -> tuple[int, int]:
+    """(lanes, threads): the group size and block size for B permutations
+    of width t on a card of `sms` SMs.
+
+    A batch's time goes as its chain (`chain_products`) times the warps
+    each scheduler holds, and no lower than the chain times LATENCY (a
+    chain runs no faster with fewer warps).  So a batch that fills the
+    card takes the smallest group the widths allow (the fewest
+    instructions: G = 1 for the leaves), one that leaves the card idle a
+    group as wide as the state (the shortest chain); between the two, the
+    least of chain x max(LATENCY, warps a scheduler); blocks as
+    `plan_threads` sizes them."""
+    slots = sms * SCHEDULERS_PER_SM
+
+    def cost(g):
+        warps = -(-B * g // 32)
+        return chain_products(t, n_p, g) * max(LATENCY, warps / slots), g
+
+    lanes = min(cost(g) for g in lane_choices(t))[1]
+    return lanes, plan_threads(B, lanes, sms)
+
+
+def plan_threads(B: int, lanes: int, sms: int = 132) -> int:
+    """Threads a block for B groups of `lanes`: 128, or 64 or 32 where
+    fewer blocks than SMs would leave SMs idle."""
+    threads = 32 * -(-B * lanes // 32)
+    for block in (128, 64):
+        if -(-threads // block) >= sms:
+            return block
+    return 32
 
 
 def poseidon(field: bi.Field) -> PoseidonBig:
@@ -106,10 +175,15 @@ def _check(t: int, inp: torch.Tensor, init: torch.Tensor, n_out: int):
 
 
 def permute(field: bi.Field, t: int, inp: torch.Tensor, init: torch.Tensor,
-            n_out: int = 1) -> torch.Tensor:
+            n_out: int = 1, lanes: int | None = None) -> torch.Tensor:
     """inp [B, t-1, 4] and the capacity init [B, 4] (canonical values) ->
-    the first n_out lanes of each permuted state, [B, n_out, 4]."""
+    the first n_out lanes of each permuted state, [B, n_out, 4].  `lanes`
+    sets the kernel's group size (one of `lane_choices(t)`; None: `plan`'s
+    pick)."""
     _check(t, inp, init, n_out)
+    if lanes is not None and lanes not in lane_choices(t):
+        raise ValueError(f"poseidon_fr: {lanes} lanes at t = {t}; the "
+                         f"kernel takes {lane_choices(t)}")
     if inp.device.type == "cpu":
         return permute_plain(field, t, inp, init, n_out)
     if not inp.is_cuda or init.device != inp.device:
@@ -122,8 +196,14 @@ def permute(field: bi.Field, t: int, inp: torch.Tensor, init: torch.Tensor,
     out = torch.empty((B, n_out, 4), dtype=torch.int64, device=inp.device)
     if B == 0:  # no states: nothing to launch or count
         return out
+    n_p = pos.n_rounds_p(t)
+    sms = torch.cuda.get_device_properties(inp.device).multi_processor_count
+    if lanes is None:
+        g, threads = plan(t, n_p, B, sms)
+    else:
+        g, threads = lanes, plan_threads(B, lanes, sms)
     kernels.POSEIDON_FR.launch(
-        inp.device.index, fidx, t, pos.n_rounds_p(t), tab["C"].data_ptr(),
+        inp.device.index, fidx, t, n_p, g, threads, tab["C"].data_ptr(),
         tab["M"].data_ptr(), tab["P"].data_ptr(), tab["S"].data_ptr(),
         inp.data_ptr(), init.data_ptr(), out.data_ptr(), n_out, B,
         stream=torch.cuda.current_stream(inp.device).cuda_stream)

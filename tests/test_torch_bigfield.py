@@ -260,22 +260,27 @@ def test_backends_dispatch_as_the_jax_package():
 @pytest.mark.cuda
 @pytest.mark.parametrize("curve", sorted(CURVES))
 def test_poseidon_fr_kernel_matches_plain(cuda, curve):
-    """The kernel at every width and output count against the plain
-    version on the card, bit for bit, then a tree level and a wide leaf
-    row against the JAX package's host hash."""
+    """The kernel at every width and output count, on every group size the
+    width allows and on `plan`'s pick (so every instance), from one state
+    to more than one block holds (B = 300 > 128 groups of one thread),
+    against the plain version on the card, bit for bit, then a tree level
+    and a wide leaf row against the JAX package's host hash."""
     field, _, jax_mod = CURVES[curve][:3]
     for t in range(2, 18):
-        states = _states(field, t, 37, 100 + t)
-        inp, init = _split(states, cuda)
-        before = kernels.POSEIDON_FR.launches
-        got = poseidon_fr.permute(field, t, inp, init, n_out=t)
-        assert kernels.POSEIDON_FR.launches == before + 1
-        want = poseidon_fr.permute_plain(field, t, inp, init, t)
-        assert torch.equal(got, want)
-        assert bi.to_ints(got[3]) == jax_mod.hash_ex(states[3][1:],
-                                                     states[3][0], t)
-        one = poseidon_fr.permute(field, t, inp, init, n_out=1)
-        assert torch.equal(one, want[:, :1])
+        for B in (1, 37, 300):
+            states = _states(field, t, B, 100 * B + t) if B > 3 else \
+                _states(field, t, 3, t)[:B]
+            inp, init = _split(states, cuda)
+            want = poseidon_fr.permute_plain(field, t, inp, init, t)
+            for lanes in poseidon_fr.lane_choices(t) + (None,):
+                before = kernels.POSEIDON_FR.launches
+                got = poseidon_fr.permute(field, t, inp, init, t, lanes)
+                assert kernels.POSEIDON_FR.launches == before + 1
+                assert torch.equal(got, want), (t, B, lanes)
+                one = poseidon_fr.permute(field, t, inp, init, 1, lanes)
+                assert torch.equal(one, want[:, :1]), (t, B, lanes)
+            assert bi.to_ints(got[B - 1]) == jax_mod.hash_ex(
+                states[B - 1][1:], states[B - 1][0], t)
     rows = _gl_rows(np.random.default_rng(1), 300, 375)
     got = lh.hash_leaves(field, gl.from_u64(rows, cuda))
     assert torch.equal(got.cpu(), lh.hash_leaves(field, gl.from_u64(rows)))

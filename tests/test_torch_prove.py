@@ -289,6 +289,32 @@ def test_kernel_build_recompiles_only_stale_sources(tmp_path):
            for x in ("", ".stamp")])
 
 
+def test_kernel_build_of_named_sources(tmp_path):
+    """kernels.build(sources=...) compiles and links the named sources
+    alone (the fake nvcc writes its arguments as each output), and raises
+    on a name csrc lacks."""
+    from eigen_zkvm_tpu_torch import kernels
+
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "c.cu"):
+        (csrc / name).write_text("#include <cstdint>\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\n"
+                    "a = sys.argv[1:]\n"
+                    "open(a[a.index('-o') + 1], 'w').write(' '.join(a))\n")
+    nvcc.chmod(0o755)
+    info = kernels.build(False, str(csrc), str(out), str(nvcc),
+                         sources=("c.cu", "a.cu"))
+    assert info["compiled"] == ["a.cu", "c.cu"]
+    link = (out / os.path.basename(kernels.LIB_PATH)).read_text()
+    assert "a.cu.o" in link and "c.cu.o" in link and "b.cu.o" not in link
+    assert not (out / "b.cu.o").exists()
+    with pytest.raises(kernels.KernelError, match="d.cu"):
+        kernels.build(False, str(csrc), str(out), str(nvcc),
+                      sources=("a.cu", "d.cu"))
+
+
 def test_engine_names_its_device():
     assert repr(Engine("cpu")) == "Engine(device=cpu, resident=True)"
     assert Engine(torch.device("cpu")).device == torch.device("cpu")
