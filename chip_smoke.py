@@ -51,8 +51,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               query in G1 and the B2 query in G2, with the witness: about
               2^21 points, c = 14, half the scalars boolean) against the
               plain versions of its stages (ops/ec.msm_stages_plain); the
-              fixed-base batch at setup's lane counts (G2 whole, G1 checked
-              on one lane in 32); the R1CS rows (csrc/r1cs.cu: the three
+              fixed-base batch at setup's lane counts (G2 checked on one
+              lane in 8, G1 on one in 32); the R1CS rows (csrc/r1cs.cu: the three
               matrices in one launch, padded, the publics in A's tail) of
               the circuit, then of bench_groth16.long_rows at 2^16 rows
               (rows of 0 to 4,096 nonzeros, a warp for each long one).
@@ -82,11 +82,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ram_digest of its images, the two chain, and each zkin's
               sha256 must equal ZKVM_SHA256, the host engine's digest.
               Chunk 0's stark_gen runs beside nvidia-smi's utilization
-              samples (its busy share and device time), chunk 1's under
-              bench_zkvm's operator counter (the eager launches).  Then
-              the MiniRV machine's
-              MEMWALK guest over three or more 2^10-row chunks with a
-              64-word RAM image through zkvm_execute_and_prove on the card.
+              samples (its busy share and device time); both chunks' zkins
+              stay for phase 10.  Then the MiniRV machine's MEMWALK guest
+              over three or more 2^10-row chunks with a 64-word RAM image
+              through zkvm_execute_and_prove on the card.
               The NTT and Poseidon kernels are held at this path's widths:
               the LDE [2^16, 375] -> [2^17, 375] and the leaves of
               [2^17, 375] (the plain version on one row in 8).
@@ -111,6 +110,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               then the leaves' and each level's time in one BN128 tree
               over 2^17 rows of width 12 and of width 0
               (bench_poseidon_fr.tree_split).
+ 10. recursion the GL recursion layers (eigen_zkvm_tpu_torch/recursion/) over
+              phase 8's two chunk zkins, taken from memory, on the card
+              (bench_recursion.run_layers, scripts/zkvm_e2e.py:135-170): c12
+              of each chunk (skip_main, natural size), recursive1 of each
+              (forced to 2^RECURSION_FORCE rows), and the chained
+              aggregation of the two (ChainMap.for_machine: chunk 0's
+              out-state is chunk 1's in-state inside the circuit), all at
+              RECURSION_QUERIES queries, each self-verified on the host.
+              Each of the five zkins' sha256 must equal RECURSION_SHA256,
+              the host engine's digest; the aggregated proof's mem_in*
+              must equal chunk 0's image digest and its mem_out* chunk
+              1's outgoing one.  Then the NTT and Poseidon at recursive1's
+              shapes: the LDE of each of its sections (committed,
+              constant, stage 3, Q) from 2^18 to 2^19 rows and their
+              leaves (the plain version on one row in 8).
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -120,7 +134,8 @@ Each path's kernels must launch in its own run (counts set to 0 just
 before it, read just after): the GL kernels in phase 4, the four Groth16
 kernels in phase 5, K1, K3 and K4 in phase 6's prove, the GL kernels in
 each of phase 7's proves and of phase 8's chunk and MEMWALK proves, the
-NTT and Poseidon-Fr in each of phase 9's proves.
+NTT and Poseidon-Fr in each of phase 9's proves, the NTT and Poseidon in
+each of phase 10's five layers.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and the IMADs its function needs at the least
@@ -267,6 +282,27 @@ BIGFIELD_SHA256 = {
         "c6cb3604e774629bbb35d134d1732f5071b06bce44da4860cabc140250b0fe0a",
     ("permutation", "BN128"):
         "de29d770cb45559c67fa0b6e8637f57a13201d2c499ce925706361019692dc58",
+}
+# Phase 10: the recursion layers over phase 8's chunks (scripts/zkvm_e2e.py:
+# 135-170): c12 of each, recursive1 of each forced to 2^RECURSION_FORCE
+# rows (recursive_proof_to_snark.sh:88), the chained aggregation of the
+# two, every layer at RECURSION_QUERIES queries.  The digests are the zkin
+# JSON's sha256 that eigen_zkvm_tpu's host engine writes for the same
+# layers over its own proofs of the same chunks;
+# tests/test_torch_recursion.py::test_host_engine_gives_the_pinned_recursion_digests
+# recomputes them.
+RECURSION_QUERIES, RECURSION_FORCE = 4, 18
+RECURSION_SHA256 = {
+    "c12 0":
+        "08c8ea25e705859e86deab00a8b3574f35af5feeb1d1eb5f9c9973086d1fccb5",
+    "recursive1 0":
+        "2880942486900c272cd7dc8bf8a1f5c2de7a96a1ae558e4b70695c100e8bcbd4",
+    "c12 1":
+        "468865d80f5d37ec56d2e38c679067c1f0d5d963ebd41eced9ebad5dcdaf0c5b",
+    "recursive1 1":
+        "3f60ff89cc41845498b1c062bbf83474bfdaaa85252ccdcd8be5d69a078607d5",
+    "aggregation":
+        "e283c0ad056a1fa3fb8982c4cc6ee2eda0cf71ee743c9af86a3c843474ceb87f",
 }
 LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -661,8 +697,9 @@ def _r1cs_work(rows, wit, m: int) -> tuple:
 def _check_groth16_shapes(dev, circ, pk) -> dict:
     """Phase 5, after the run: K1 on the prove's own inputs (the A query
     in G1 and the B2 query in G2 with the witness) against the plain
-    versions of its stages, K2 at setup's lane counts (the G2 batch whole,
-    the G1 batch on one lane in 32), K4 on the circuit's three matrices.
+    versions of its stages, K2 at setup's lane counts (the G2 batch on one
+    lane in 8, the G1 batch on one in 32), K4 on the circuit's three
+    matrices.
     {kernel name: cases}; the first case of each is the one its line
     reports."""
     from eigen_zkvm_tpu_torch import kernels
@@ -688,7 +725,7 @@ def _check_groth16_shapes(dev, circ, pk) -> dict:
         + pk.h_query.shape[0]
     n2 = 3 + pk.n_vars
     k2_cases = []
-    for g, n, step in ((ec.G2, n2, 1), (ec.G1, n1, 32)):
+    for g, n, step in ((ec.G2, n2, 8), (ec.G1, n1, 32)):
         S = _random_scalars(dev, n, n)
         gen = ec.generator(g)
         rows = None if step == 1 else slice(0, n, step)
@@ -947,12 +984,15 @@ def _check_zkvm_kernels(dev, rng) -> dict:
     return {kernels.NTT.name: [ntt_case], kernels.POSEIDON.name: [pos_case]}
 
 
-def _zkvm(dev) -> dict:
+def _zkvm(dev) -> tuple:
     """Phase 8: the native executor's build, the ecrecover guest's
     chunking, the RV32IM machine's setup, chunks 0 and 1 traced, proved on
-    the card and verified (chunk 0 with its busy share sampled, chunk 1
-    with its operators counted), their digests and chain; then the MiniRV
-    MEMWALK chain on the card."""
+    the card and verified (chunk 0 with its busy share sampled), their
+    digests and chain; then the MiniRV MEMWALK chain on the card.  Returns
+    (its report, phase 10's inputs: the guest, the machine, its setup and
+    struct, and the two chunks' zkins)."""
+    from types import SimpleNamespace
+
     import torch
 
     from eigen_zkvm_tpu_torch import bench_zkvm, kernels
@@ -982,19 +1022,11 @@ def _zkvm(dev) -> dict:
     print(f"  machine {times['machine_s']:.3f} s ({out['n_cm']} committed, "
           f"{out['n_const']} constant columns, {out['n_plookups']} "
           f"plookups), setup {times['setup_s']:.3f} s", flush=True)
-    chunks = []
+    chunks, zkins = [], []
     for k in ZKVM_CHUNKS:
-        if k == ZKVM_CHUNKS[0]:
-            r = bench_zkvm.prove_chunk(guest, machine, setup, ss, k, engine,
-                                       busy=True)
-        else:
-            counter = bench_zkvm.op_counter()
-            with counter:
-                r = bench_zkvm.prove_chunk(guest, machine, setup, ss, k,
-                                           engine)
-            r["ops"] = sum(counter.counts.values())
-            r["by_op"] = sorted(counter.by_name().items(),
-                                key=lambda kv: -kv[1])[:12]
+        r = bench_zkvm.prove_chunk(guest, machine, setup, ss, k, engine,
+                                   busy=k == ZKVM_CHUNKS[0], keep_zkin=True)
+        zkins.append(r.pop("zkin"))
         r["sha256_ok"] = r["zkin_sha256"] == ZKVM_SHA256[k]
         chunks.append(r)
         print(f"  chunk {k}: {r['rows']} states in {r['states_s']:.3f} s; "
@@ -1008,14 +1040,11 @@ def _zkvm(dev) -> dict:
                   f"share {r['busy_share']} (nvidia-smi utilization.gpu, "
                   f"{r['busy_samples']} samples), device time "
                   f"{r['device_s']} s", flush=True)
-        else:
-            print(f"  chunk {k} under the op counter: {r['ops']} operators "
-                  f"dispatched, views excluded (the NTT and Poseidon "
-                  f"kernels apart); top {r['by_op']}", flush=True)
     out["chunks"] = chunks
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["chain_holds"] = check_chain_publics([r["publics"] for r in chunks])
-    del machine, setup
+    state = SimpleNamespace(guest=guest, machine=machine, setup=setup, ss=ss,
+                            zkins=zkins)
 
     torch.cuda.synchronize()
     kernels.reset_counts()
@@ -1034,7 +1063,7 @@ def _zkvm(dev) -> dict:
           f"rows proved, verified and chained in {out['memwalk']['s']:.2f} "
           f"s; launches {out['memwalk']['launches']}; result "
           f"{out['memwalk']['sum_ok']}", flush=True)
-    return out
+    return out, state
 
 
 def _bigfield(dev) -> list:
@@ -1225,6 +1254,67 @@ def _bigfield_split(dev) -> list:
               + "; ".join(f"level of {n} {ms:.3f} ms" for n, ms in
                           zip(sp["levels"], sp["steps_ms"][1:])), flush=True)
     return out
+
+
+def _recursion(dev, state) -> dict:
+    """Phase 10: c12 and recursive1 of phase 8's two chunk zkins, then
+    their chained aggregation, on the card (each layer's kernel counts set
+    to 0 just before it, read just after); the five zkins' digests and the
+    super-chunk publics."""
+    from eigen_zkvm_tpu_torch import bench_recursion
+    from eigen_zkvm_tpu_torch.recursion.compressor12 import ChainMap
+    from eigen_zkvm_tpu_torch.stark.engine import Engine
+
+    records, out = bench_recursion.run_layers(
+        state.zkins, state.setup, state.ss, Engine(dev), RECURSION_QUERIES,
+        RECURSION_FORCE, ChainMap.for_machine(state.machine),
+        log=lambda line: print(line, flush=True))
+    for r in records:
+        r["sha256_ok"] = r["zkin_sha256"] == RECURSION_SHA256[r["layer"]]
+    return dict(layers=records, super_publics_hold=(
+        bench_recursion.super_publics_hold(
+            state.guest, state.machine, out["aggregation"], ZKVM_CHUNKS[0],
+            ZKVM_CHUNKS[-1])))
+
+
+def _check_recursion_kernels(dev, rng, layer: dict) -> dict:
+    """Phase 10's widths, at a recursive1 layer's shapes: the NTT at the LDE
+    of each of its sections (committed, constant, stage 3, Q) from 2^n to
+    2^(n+1) rows, and Poseidon at their leaves (the plain version on one
+    row in 8)."""
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.ops import ntt, poseidon
+    import numpy as np
+
+    nb = layer["n_bits"]
+    n, ext = 1 << nb, nb + 1
+    widths = {s.replace("_2ns", ""): w for s, w in layer["widths"].items()}
+    widths["const"] = layer["n_const"]
+    ntt_cases, pos_cases = [], []
+    every = 8
+    for name, w in widths.items():
+        if w == 0:
+            continue
+        x = _rand(rng, dev, (n, w))
+        ntt_cases.append(_hold(
+            f"ntt interpolate {name} [2^{nb},{w}]->[2^{ext},{w}]",
+            lambda: ntt.interpolate(x, nb, ext),
+            lambda: ntt.interpolate_plain(x, nb, ext), 10, 1, 8 * w * 3 * n,
+            _ntt_imads(nb, w, True) + _ntt_imads(ext, w, False)))
+        del x
+        if w <= 4:   # a leaf of four values or fewer is the row itself
+            continue
+        leaves = _rand(rng, dev, (2 * n, w),
+                       np.tile(_edge_states(np), (1, -(-w // 12)))[:, :w])
+        pos_cases.append(_hold(
+            f"poseidon leaves {name} [2^{ext},{w}] (plain: 1 row in "
+            f"{every})", lambda: poseidon.hash_leaves(leaves, w),
+            lambda: poseidon.hash_leaves_plain(leaves[::every], w), 10, 0,
+            8 * (leaves.numel() + leaves.shape[0] * 4),
+            POSEIDON_IMADS * _leaf_perms(w) * leaves.shape[0],
+            rows=slice(None, None, every)))
+        del leaves
+    return {kernels.NTT.name: ntt_cases, kernels.POSEIDON.name: pos_cases}
 
 
 def main() -> int:
@@ -1439,7 +1529,7 @@ def main() -> int:
     t0 = time.perf_counter()
     print("zkvm: the ecrecover guest's chunks on the card through zkvm/:")
     try:
-        z = _zkvm(dev)
+        z, zk_state = _zkvm(dev)
     except RuntimeError as e:
         return _fail(f"the zkVM phase failed: {e}")
     report["zkvm"] = z
@@ -1488,13 +1578,46 @@ def main() -> int:
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
 
+    # 10. the GL recursion layers over phase 8's chunks
+    t0 = time.perf_counter()
+    print("recursion: c12, recursive1 and the chained aggregation of phase "
+          "8's chunks on the card:")
+    try:
+        rec = _recursion(dev, zk_state)
+    except (RuntimeError, AssertionError) as e:
+        return _fail(f"the recursion phase failed: {e!r}")
+    del zk_state
+    report["recursion"] = rec
+    r1 = next(r for r in rec["layers"] if r["layer"].startswith("recursive1"))
+    for name, more in _check_recursion_kernels(dev, rng, r1).items():
+        cases[name] = cases[name] + more
+    report["recursion_s"] = time.perf_counter() - t0
+    print(f"recursion: {report['recursion_s']:.1f} s; layers "
+          + ", ".join(f"{r['layer']} {r['wall_s']:.1f} s" for r in
+                      rec["layers"])
+          + f"; super-chunk publics hold {rec['super_publics_hold']}")
+    if not all(r["sha256_ok"] for r in rec["layers"]):
+        return _fail("a recursion layer's proof differs from the host "
+                     "engine's")
+    if not rec["super_publics_hold"]:
+        return _fail("the aggregated proof's publics are not the "
+                     "super-chunk's")
+    if any(r["launches"][n] == 0 for r in rec["layers"] for n in gl_names):
+        return _fail("a recursion layer did not launch the NTT and "
+                     "Poseidon")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks
     if any(c["err"] != 0.0 for c in checks):
         return _fail("a kernel disagrees with its plain version at the "
-                     "Groth16 run's, the zkVM path's or the big-field "
-                     "proves' shapes")
+                     "Groth16 run's, the zkVM path's, the big-field "
+                     "proves' or the recursion layers' shapes")
 
     report["smoke_s"] = time.perf_counter() - t_start
     print(f"smoke: {report['smoke_s']:.1f} s, kernel build included")

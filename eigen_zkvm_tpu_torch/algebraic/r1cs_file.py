@@ -2,8 +2,9 @@
 gates sections) for the port's command line.
 
 Copy of eigen_zkvm_tpu/algebraic/r1cs_file.py (the native equivalent of
-algebraic/src/r1cs_file.rs), without `circuit_to_r1cs`, whose input is the
-JAX package's CircuitBuilder.  The bytes written and read are the same.
+algebraic/src/r1cs_file.rs); `circuit_to_r1cs` takes the port's
+recursion/circuit.py CircuitBuilder.  The bytes written and read are the
+same.
 
 Sections: 1 = header (field size, prime LE, nWires, nPubOut, nPubIn,
 nPrvIn, nLabels, nConstraints), 2 = constraints (A,B,C sparse lcs),
@@ -195,6 +196,29 @@ def to_bytes(r1cs: R1CS) -> bytes:
 def save_r1cs(path: str, r1cs: R1CS):
     with open(path, "wb") as f:
         f.write(to_bytes(r1cs))
+
+
+def circuit_to_r1cs(circuit) -> R1CS:
+    """Export a recursion.circuit.CircuitBuilder to the .r1cs schema
+    (gate template names indexed in declaration order)."""
+    # one gate definition per distinct (name, params) — circom convention
+    # (FFT4 gates carry their 9 twiddle constants as template params)
+    defs: list = []
+    uses = []
+    for entry in circuit.custom_gates:
+        name, sigs = entry[0], entry[1]
+        params = [int(c) for c in entry[2]] if len(entry) > 2 else []
+        key = (name, tuple(params))
+        if key not in defs:
+            defs.append(key)
+        uses.append((defs.index(key), sigs))
+    return R1CS(
+        prime=circuit.P, n_wires=circuit.n_vars, n_pub_out=0,
+        n_pub_in=circuit.n_publics,
+        n_prv_in=circuit.n_vars - circuit.n_publics - 1,
+        n_labels=circuit.n_vars, constraints=list(circuit.constraints),
+        wire_map=list(range(circuit.n_vars)),
+        custom_gates=[(n, list(p)) for n, p in defs], custom_gates_uses=uses)
 
 
 def r1cs_to_circuit_inputs(r1cs: R1CS):

@@ -115,15 +115,17 @@ def setup_machine(guest: Guest, queries: int, engine):
 
 
 def prove_chunk(guest: Guest, machine, setup, ss, k: int, engine,
-                busy: bool = False) -> dict:
+                busy: bool = False, keep_zkin: bool = False) -> dict:
     """Materialize, trace, prove and verify chunk k on the engine; the
     kernels' counts are set to 0 just before and read just after.  With
     `busy`, the card's utilization is sampled (GpuBusy) over the prove:
-    `busy_share`, and `device_s`, that share of stark_gen's wall."""
+    `busy_share`, and `device_s`, that share of stark_gen's wall.  With
+    `keep_zkin`, the proof's zkin dict is under "zkin" (the next recursion
+    layer's input)."""
     import torch
 
     from . import kernels
-    from .stark.serializer import stark_proof_to_json
+    from .stark.serializer import stark_proof_to_dict
     from .utils.profiler import Prof
     from .zkvm.rv32_lib import rv32_prove_only
 
@@ -147,13 +149,16 @@ def prove_chunk(guest: Guest, machine, setup, ss, k: int, engine,
         torch.cuda.synchronize(engine.device)
     launches = kernels.counts()
     t2 = time.perf_counter()
-    zkin = stark_proof_to_json(proof, ss.verificationHashType)
+    zkin_dict = stark_proof_to_dict(proof, ss.verificationHashType)
+    zkin = json.dumps(zkin_dict, separators=(",", ":"))  # stark_proof_to_json
     gen_s = sum(t for st, t in prof.stages if st not in ("trace", "verify"))
     out = dict(chunk=k, rows=len(states), states_s=t1 - t0,
                wall_s=t2 - t1, stark_gen_s=gen_s, stages=prof.stages,
                launches=launches, publics=pubs,
                digests_hold=guest.digests_hold(k, pubs),
                zkin_sha256=hashlib.sha256(zkin.encode()).hexdigest())
+    if keep_zkin:
+        out["zkin"] = zkin_dict
     if sampler:
         gen0 = prof.t0 + prof.stages[0][1]   # after the "trace" tick
         share, n = sampler.share(gen0, gen0 + gen_s)

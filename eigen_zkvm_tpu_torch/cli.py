@@ -6,13 +6,15 @@ Usage: python -m eigen_zkvm_tpu_torch.cli <command> [options]
 Commands:
   stark_prove         prove a PIL trace, self-verify, write zkin.json
   stark_verify        verify a zkin.json proof against PIL + struct + const
+  compressor12_setup  verifier circuit (zkin or .r1cs) -> .pil.json/.const/.exec
+  compressor12_exec   witness pass -> .cm commit file
   join_zkin           merge two recursive zkin inputs for aggregation
   groth16_setup       circuit-specific SNARK setup -> pk file / vk json
   groth16_prove       SNARK proof of a circuit and its witness
   groth16_verify      verify a SNARK proof json
   generate_verifier   render the Solidity verifier from a vk json
 
-The flags, names and output files are the JAX package's, with three
+The flags, names and output files are the JAX package's, with four
 differences:
   - groth16_setup and groth16_prove take --circuit as a circom .r1cs file,
     not a pickle, and groth16_prove takes --witness (.wtns or a JSON list),
@@ -22,20 +24,27 @@ differences:
   - stark_prove parses --circom, --agg_stage, --norm_stage and --skip_main
     and raises NotImplementedError for them (the verifier-circuit render,
     ROADMAP queue 1 item 4); groth16's --curve_type BLS12381 raises
-    NotImplementedError (BN254 Groth16 only).
+    NotImplementedError (BN254 Groth16 only);
+  - compressor12_setup keeps, beside the .pil.json, `<pil>.setup.pkl`: the
+    inner proof's starkinfo, program and const root (host objects, no
+    tensor), its starkStruct and the circuit options, which
+    compressor12_exec reads with the .pil.json and the .exec (the JAX
+    package pickles its whole StarkSetup and PlonkSetup instead).
 stark_prove and stark_verify take a starkStruct of any verificationHashType
 the JAX package serves: GL, BN128 or BLS12381 (the big-field Merkle trees
 hash on the Poseidon-over-Fr kernel, csrc/poseidon_fr.cu).
-stark_prove, stark_verify, groth16_setup and groth16_prove run on the
-current CUDA device and raise without one; their --device flag is for the
+stark_prove, stark_verify, compressor12_setup (for the inner const tree),
+groth16_setup and groth16_prove run on the current CUDA device and raise
+without one; their --device flag is for the
 tests (--device cpu runs the kernels' plain versions).  groth16_verify,
-join_zkin and generate_verifier are host work.  `main` returns the exit
+compressor12_exec, join_zkin and generate_verifier are host work.  `main` returns the exit
 code: 1 when a verifier rejects.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import pickle
 import sys
 import time
 
@@ -78,6 +87,85 @@ def _cmd_stark_verify(args) -> int:
                       setup.program)
     print("verify:", "OK" if ok else "FAILED")
     return 0 if ok else 1
+
+
+def _cmd_compressor12_setup(args) -> int:
+    """The verifier circuit of an inner proof (its zkin and the inner PIL,
+    struct and constants), or a circom .r1cs with custom gates, packed
+    into the 12-column PIL: .pil.json, .const and .exec files."""
+    from .bench_chain import pil_to_json
+    from .recursion.compressor12 import (StarkOption, compressor12_setup,
+                                         write_exec_file)
+    from .recursion.plonk_setup import PlonkSetup
+    from .stark.engine import Engine
+    from .stark.polsarray import PolsArray
+    from .stark.stark_setup import StarkSetup
+    from .stark.types import load_pil, load_starkstruct
+
+    if args.r1cs:
+        from types import SimpleNamespace
+
+        from .algebraic.r1cs_file import load_r1cs, r1cs_to_circuit_inputs
+
+        constraints, gates, n_vars, n_pub = r1cs_to_circuit_inputs(
+            load_r1cs(args.r1cs))
+        shape = SimpleNamespace(constraints=constraints, custom_gates=gates,
+                                n_vars=n_vars, n_publics=n_pub)
+        psetup = PlonkSetup(shape, force_n_bits=args.force_n_bits)
+    else:
+        engine = Engine(args.device)
+        inner_pil = load_pil(args.inner_pil)
+        inner_ss = load_starkstruct(args.inner_struct)
+        const_pols = PolsArray(inner_pil, PolsArray.CONSTANT).load(
+            args.inner_const)
+        setup = StarkSetup(const_pols, inner_pil, inner_ss, engine)
+        with open(args.input) as f:
+            zkin = json.load(f)
+        opt = StarkOption(verkey_input=args.norm_stage,
+                          agg_stage=args.agg_stage,
+                          skip_main=args.skip_main)
+        _, psetup = compressor12_setup(zkin, setup, inner_ss, opt,
+                                       force_n_bits=args.force_n_bits)
+        inner = {"starkinfo": setup.starkinfo, "program": setup.program,
+                 "const_root": [int(x) for x in setup.const_root],
+                 "stark_struct": inner_ss, "options": opt}
+        with open(args.pil + ".setup.pkl", "wb") as f:
+            pickle.dump(inner, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+    with open(args.pil, "w") as f:
+        json.dump(pil_to_json(psetup.pil), f)
+    psetup.const_pols.save(args.const)
+    write_exec_file(args.exec, psetup)
+    print(f"compressor12_setup -> {args.pil} / {args.const} / {args.exec} "
+          f"(n_bits={psetup.n_bits}, n_used={psetup.n_used})")
+    return 0
+
+
+def _cmd_compressor12_exec(args) -> int:
+    """The witness pass of compressor12_setup's circuit on a zkin: the
+    12 committed columns as a .cm file."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from .recursion.compressor12 import compressor12_exec, read_exec_file
+    from .recursion.plonk_setup import PlonkSetup
+    from .stark.types import load_pil
+
+    with open(args.pil + ".setup.pkl", "rb") as f:
+        inner = pickle.load(f)
+    setup = SimpleNamespace(
+        starkinfo=inner["starkinfo"], program=inner["program"],
+        const_root=np.array(inner["const_root"], dtype=np.uint64))
+    adds, s_map = read_exec_file(args.exec)
+    psetup = PlonkSetup.from_exec(load_pil(args.pil), adds, s_map)
+    with open(args.input) as f:
+        zkin = json.load(f)
+    cm = compressor12_exec(zkin, setup, inner["stark_struct"],
+                           inner["options"], psetup)
+    cm.save(args.commit)
+    print(f"compressor12_exec -> {args.commit}")
+    return 0
 
 
 def _cmd_join_zkin(args) -> int:
@@ -212,6 +300,30 @@ def main(argv=None, prof=None) -> int:
     p.add_argument("--proof", "-f", required=True)
     _device_flag(p)
     p.set_defaults(func=_cmd_stark_verify)
+
+    p = sub.add_parser("compressor12_setup",
+                       help="verifier circuit -> c12 PIL/const/exec")
+    p.add_argument("--r1cs", "-r", help="circom .r1cs input (interop path)")
+    p.add_argument("--input", "-i", help="inner proof zkin.json (native path)")
+    p.add_argument("--inner_pil", help="inner PIL json (native path)")
+    p.add_argument("--inner_struct", help="inner starkStruct (native path)")
+    p.add_argument("--inner_const", help="inner .const (native path)")
+    p.add_argument("--pil", "-p", required=True, help="output c12 .pil.json")
+    p.add_argument("--const", "-c", required=True, help="output .const")
+    p.add_argument("--exec", "-e", required=True, help="output .exec")
+    p.add_argument("--force_n_bits", "--force-n-bits", type=int, default=0)
+    p.add_argument("--norm_stage", action="store_true")
+    p.add_argument("--agg_stage", action="store_true")
+    p.add_argument("--skip_main", action="store_true")
+    _device_flag(p)
+    p.set_defaults(func=_cmd_compressor12_setup)
+
+    p = sub.add_parser("compressor12_exec", help="witness pass -> .cm")
+    p.add_argument("--input", "-i", required=True, help="zkin.json")
+    p.add_argument("--pil", "-p", required=True)
+    p.add_argument("--exec", "-e", required=True)
+    p.add_argument("--commit", "-m", required=True, help="output .cm")
+    p.set_defaults(func=_cmd_compressor12_exec)
 
     p = sub.add_parser("join_zkin", help="merge two zkin inputs")
     p.add_argument("--zkin1", required=True)

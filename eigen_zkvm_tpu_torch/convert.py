@@ -1,7 +1,8 @@
 """Carry state between eigen_zkvm_tpu (JAX) and the port.
 
 Nothing here imports the JAX package: its objects are read by duck typing,
-its limb pairs as numpy (or JAX) arrays, its curve points as affine ints.
+its limb pairs as numpy (or JAX) arrays, its curve points as affine ints,
+its PILs through the PIL JSON (bench_chain.pil_to_json).
 
 The JAX package keeps a field element as a u32 (lo, hi) limb pair; the port
 keeps its u64 bit pattern in one int64 tensor (ops/gl.py).
@@ -11,10 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bench_chain import pil_to_json
 from .groth16 import groth16 as g16
 from .hash.merkle import ZeroMerkleTreeGL
 from .ops import bigint, commit, commit_big, ec, gl
+from .recursion.plonk_setup import PlonkSetup
+from .recursion.r1cs2plonk import PlonkAdd
+from .stark.polsarray import PolsArray
 from .stark.stark_setup import StarkSetup
+from .stark.types import PIL, StarkStruct
 
 
 def _join(lo, hi) -> np.ndarray:
@@ -92,6 +98,39 @@ def setup_from_jax(setup, device: torch.device | str) -> StarkSetup:
     out.const_tree = commit.DeviceMerkleTreeGL(
         gl.from_u64(nodes, device), height, width,
         gl.from_u64(elements, device))
+    return out
+
+
+def pil_from_jax(pil) -> PIL:
+    """A JAX-package PIL as the port's, through its JSON form."""
+    return PIL.from_json(pil_to_json(pil))
+
+
+def struct_from_jax(ss) -> StarkStruct:
+    return StarkStruct.from_json(
+        {"nBits": ss.nBits, "nBitsExt": ss.nBitsExt, "nQueries": ss.nQueries,
+         "verificationHashType": ss.verificationHashType,
+         "steps": [{"nBits": s.nBits} for s in ss.steps]})
+
+
+def pols_from_jax(pols, pil: PIL) -> PolsArray:
+    """A JAX-package PolsArray (a [n, nPols] u64 buffer) on the port's PIL."""
+    out = PolsArray(pil, pols.kind)
+    out.buffer = np.array(pols.buffer, dtype=np.uint64)
+    return out
+
+
+def plonk_setup_from_jax(psetup) -> PlonkSetup:
+    """A JAX-package recursion PlonkSetup as the port's: PIL, constants,
+    s_map and plonk additions copied, field for field."""
+    out = PlonkSetup.__new__(PlonkSetup)
+    out.pil = pil_from_jax(psetup.pil)
+    out.const_pols = pols_from_jax(psetup.const_pols, out.pil)
+    out.s_map = np.array(psetup.s_map, dtype=np.uint64)
+    out.plonk_additions = [PlonkAdd(a.s1, a.s2, a.c1, a.c2)
+                           for a in psetup.plonk_additions]
+    out.n_used, out.n_bits = psetup.n_used, psetup.n_bits
+    out.n_publics = psetup.n_publics
     return out
 
 

@@ -24,6 +24,10 @@ from . import gl
 T = 12
 _HALF_F = 4
 _N_P = 22
+# on the CPU the plain version permutes this many states at a time: its
+# dozens of temporaries a round then stay in a core's cache (2^16 states
+# at once take about twice as long a state)
+PLAIN_ROWS = 1 << 12
 
 
 @functools.lru_cache(maxsize=8)
@@ -52,7 +56,13 @@ def _mix_mds(st, m):
 
 def permute_plain(state: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel: [B, 12] -> [B, 12], the opt schedule of
-    hash/poseidon_gl.py::permute."""
+    hash/poseidon_gl.py::permute, on the CPU PLAIN_ROWS states at a time."""
+    if state.shape[0] <= PLAIN_ROWS or state.device.type != "cpu":
+        return _permute_rows(state)
+    return torch.cat([_permute_rows(s) for s in state.split(PLAIN_ROWS)])
+
+
+def _permute_rows(state: torch.Tensor) -> torch.Tensor:
     k = _consts(state.device)
     C, M, S = k["C"], k["M"], k["S"]
     st = gl.add(state, C[None, 0:T])

@@ -1,7 +1,8 @@
 """StarkProof <-> snarkjs-compatible zkin JSON.
 
 Copy of eigen_zkvm_tpu/stark/serializer.py (`stark_proof_to_json`,
-`stark_proof_from_json` and their dict forms, `join_zkin`) on the port's
+`stark_proof_from_json` and their dict forms, `join_zkin`,
+`join_zkin_chain`) on the port's
 StarkProof and FRIProof.
 
 Schema replicates the reference serializer (starky/src/serializer.rs:138-262):
@@ -190,4 +191,21 @@ def join_zkin(zkin1: dict, zkin2: dict) -> dict:
             out["rootC"] = v
     for k in sorted(zkin2):
         out[f"b_{k}"] = zkin2[k]
+    return {k: out[k] for k in sorted(out)}
+
+
+def join_zkin_chain(zkin1: dict, zkin2: dict, chain_map) -> dict:
+    """join_zkin for CONSECUTIVE continuation chunks: the exposed publics
+    are the super-chunk's (in-state from a, out-state from b), per the
+    ChainMap the aggregation circuit enforces in-circuit
+    (recursion/compressor12.ChainMap)."""
+    out = join_zkin(zkin1, zkin2)
+    a_p, b_p = zkin1["publics"], zkin2["publics"]
+    out["publics"] = [
+        (a_p if side == "a" else b_p)[idx] for side, idx in chain_map.expose]
+    # the exposed rootC is the LEAF proof's: in the left-fold, side b is
+    # always a fresh recursive1 leaf, while side a alternates between leaf
+    # and aggregation-circuit proofs (whose own rootC is the agg circuit's
+    # const root) — the in-circuit binding pins root_c == b_rootC
+    out["rootC"] = zkin2["rootC"]
     return {k: out[k] for k in sorted(out)}

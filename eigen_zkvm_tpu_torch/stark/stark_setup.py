@@ -5,6 +5,7 @@ const root is the verification key).  The const tree is built by the hash
 backend's tree builder (stark/backends.py: ops/commit.py for GL,
 ops/commit_big.py for BN128 and BLS12381) on the engine's device and stays
 there; the starkinfo compiler is the port's copy (stark/starkinfo.py).
+A `prof` (utils/profiler.Prof) gets a tick after each of the two.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import copy
 import pickle
 
 from ..ops import gl
+from ..utils.profiler import Prof
 from .backends import get_backend
 from .engine import Engine
 from .starkinfo import Program, StarkInfo
@@ -19,7 +21,8 @@ from .starkinfo import Program, StarkInfo
 
 class StarkSetup:
     def __init__(self, const_pols, pil, stark_struct,
-                 engine: Engine | None = None, global_l1=None):
+                 engine: Engine | None = None, global_l1=None,
+                 prof: Prof | None = None):
         if const_pols.nPols != pil.nConstants:
             raise ValueError("const pols do not match the PIL")
         backend = get_backend(stark_struct.verificationHashType)
@@ -28,8 +31,12 @@ class StarkSetup:
             gl.from_u64(const_pols.buffer, engine.device), stark_struct.nBits,
             stark_struct.nBitsExt)
         self.const_root = self.const_tree.root()
+        if prof:
+            prof.tick("const tree")
         # the compiler mutates the PIL; keep the caller's reusable
         self.starkinfo = StarkInfo(copy.deepcopy(pil), stark_struct, global_l1)
+        if prof:
+            prof.tick("starkinfo compile")
         self.program: Program = self.starkinfo.program
 
     # checkpoint / resume: the setup is a reusable artifact

@@ -58,6 +58,15 @@ def test_permute_matches_numpy_jax_and_mxu_twin():
         got, gl_jax.to_u64(pj.permute(gl_jax.from_u64(st))))
 
 
+def test_permute_plain_in_slices_of_rows():
+    """More states than PLAIN_ROWS: the plain version permutes them a slice
+    at a time on the CPU, with the numpy permutation's result."""
+    n = poseidon.PLAIN_ROWS + 3
+    st = np.concatenate([_rand(9, n - 4, 12), _edge_states()])
+    got = gl.to_u64(poseidon.permute_plain(gl.from_u64(st)))
+    assert np.array_equal(got, pnp.permute(st[:, :8], st[:, 8:]))
+
+
 def test_hash_n_with_and_without_capacity():
     inp = _rand(6, B, 8)
     cap = _rand(7, B, 4)

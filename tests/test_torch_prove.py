@@ -164,6 +164,11 @@ def test_proving_with_the_port_never_imports_jax():
         from eigen_zkvm_tpu_torch.zkvm import (continuations, elf, lib,
                                                machine, rv32, rv32_lib,
                                                rv32_native)
+        from eigen_zkvm_tpu_torch import bench_recursion, cli
+        from eigen_zkvm_tpu_torch.examples import fibonacci
+        from eigen_zkvm_tpu_torch.recursion import (
+            aggregation, circuit, compressor12, compressor12_pil, gadgets,
+            plonk_setup, r1cs2plonk, stark_verifier_circuit)
         nc = rv32_native.NativeChunker(
             rv32_lib.program_from_asm("li a0, 5\\necall"), 0, n_bits=5)
         assert nc.final.regs[10] == 5 and len(continuations.ram_digest(
@@ -182,6 +187,11 @@ def test_proving_with_the_port_never_imports_jax():
                       engine=e)
         assert stark_verify(p, s.const_root, s.starkinfo, ss, s.program)
         stark_proof_to_json(p)
+        b = circuit.CircuitBuilder()   # the F3 gadgets reach ops/f3.py
+        x = tuple(b.wire(b.sig(v)) for v in (3, 5, 7))
+        b.f3_inv(b.f3_mul(x, x, x))
+        b.ev_pol4([x] * 4, x, x)
+        assert b.check()
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
         assert not bad, bad
@@ -218,6 +228,60 @@ def test_port_sources_import_nothing_of_the_jax_package():
                         "rv32_native.py") in files
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
+    assert not bad, bad
+
+
+def _relative_imports(path):
+    """(level, module, names) of each relative import in a source file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level > 0:
+            yield node.level, node.module, [a.name for a in node.names]
+
+
+def test_port_relative_imports_stay_in_the_port():
+    """Every relative import of the port resolves to a module or package of
+    the port's own tree (a copied `from ..fields import f3g` names a
+    package the port lacks: it would pass the absolute-import scan and
+    fail only when a gadget first runs)."""
+    pkg = os.path.join(ROOT, "eigen_zkvm_tpu_torch")
+    files = glob.glob(os.path.join(pkg, "**", "*.py"), recursive=True)
+    assert os.path.join(pkg, "recursion", "circuit.py") in files
+
+    def exists(parts):
+        path = os.path.join(ROOT, *parts)
+        return os.path.isfile(path + ".py") or os.path.isfile(
+            os.path.join(path, "__init__.py"))
+
+    def defined(parts, name):
+        """`name` is a submodule of the package or defined in its
+        __init__.py."""
+        if exists(parts + [name]):
+            return True
+        init = os.path.join(ROOT, *parts, "__init__.py")
+        if not os.path.isfile(init):
+            return False
+        with open(init) as fh:
+            tree = ast.parse(fh.read())
+        return any(getattr(n, "name", None) == name or any(
+            getattr(t, "id", None) == name for t in getattr(n, "targets", []))
+            for n in tree.body)
+
+    bad = []
+    for f in files:
+        here = os.path.relpath(os.path.dirname(f), ROOT).split(os.sep)
+        for level, module, names in _relative_imports(f):
+            base = here[: len(here) - (level - 1)]
+            if level - 1 >= len(here) or base[0] != "eigen_zkvm_tpu_torch":
+                bad.append((os.path.relpath(f, ROOT), level, module))
+                continue
+            if module:
+                ok = exists(base + module.split("."))
+            else:
+                ok = all(defined(base, n) for n in names)
+            if not ok:
+                bad.append((os.path.relpath(f, ROOT), level, module, names))
     assert not bad, bad
 
 
