@@ -26,11 +26,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               +-2^(c-1) with carries; the fixed-base batch
               (csrc/ec_batch.cu) at 2^16 lanes in G1 and G2; the Fr NTT
               (csrc/fr_ntt.cu, two or three passes a transform) forward and
-              inverse at 2^21, 2^16 and 2^22 against the radix-2 ladder
-              of ntt_plain, and at 2^21 the coset round trip (to_coset,
-              from_coset: the scales ride on the inverse transforms' last
-              passes) and its pointwise products (by a constant, the
-              quotient).
+              inverse at 2^22 (phase 11's domain), 2^18 and 2^16 against
+              the radix-2 ladder of ntt_plain, and at 2^22 the coset round
+              trip (to_coset, from_coset: the scales ride on the inverse
+              transforms' last passes) and its pointwise products (by a
+              constant, the quotient).
   4. prove    the chain AIR of scripts/bench_big.py at 2^20 rows x 8 columns
               (blowup 2, 8 queries), written to files and proved through the
               port's file-based stark_prove on the card, device-resident
@@ -40,26 +40,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
               HOST_PROOF_SHA256, the digest of eigen_zkvm_tpu's host-engine
               proof of the same files.  No module of JAX or of the JAX
               package (eigen_zkvm_tpu) may have been loaded.
-  5. groth16  bench_groth16's synthetic BN254 R1CS of 2^21 - 3 constraints
-              and 2 publics (domain 2^21, about 2^21 wires, half of them
+  5. groth16  bench_groth16's synthetic BN254 R1CS of 2^18 - 3 constraints
+              and 2 publics (domain 2^18, about 2^18 wires, half of them
               boolean) through groth16_setup_inplace, groth16_prove_inplace
               and groth16_verify_inplace on the card: the verifier accepts,
               and the proof JSON's sha256 must equal GROTH16_HOST_SHA256,
               the digest of eigen_zkvm_tpu's host-engine proof of the same
-              circuit with the same draws.  Then the kernels at the shapes
-              this run gave them: the MSM on the prove's own inputs (the A
-              query in G1 and the B2 query in G2, with the witness: about
-              2^21 points, c = 14, half the scalars boolean) against the
-              plain versions of its stages (ops/ec.msm_stages_plain); the
-              fixed-base batch at setup's lane counts (G2 checked on one
-              lane in 8, G1 on one in 32); the R1CS rows (csrc/r1cs.cu: the three
-              matrices in one launch, padded, the publics in A's tail) of
-              the circuit, then of bench_groth16.long_rows at 2^16 rows
-              (rows of 0 to 4,096 nonzeros, a warp for each long one).
-              These cases are the ones the kernels' line reports.
-  6. cli      the port's command line (eigen_zkvm_tpu_torch/cli.py) at
-              phase 5's width: the circuit written as a .r1cs file, its
-              witness as a .wtns file, phase 5's seeded key as the port's
+              circuit with the same draws.  (Phase 11 holds the kernels at
+              the wrap's full-size shapes.)
+  6. cli      the port's command line (eigen_zkvm_tpu_torch/cli.py) on a
+              synthetic circuit of its own (2^16 - 3 constraints, setup
+              from the same seed): the circuit written as a .r1cs file,
+              its witness as a .wtns file, its seeded key as the port's
               key file; groth16_prove (its proof draws r and s from
               `secrets`, so groth16_verify's OK holds it, not a digest),
               groth16_verify and generate_verifier (the JAX package's
@@ -106,7 +98,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               one sponge), 0 and r - 1 mixed in; then every width
               t = 2..17 of both fields at 1,001 states on every group size
               the width allows and on plan's pick (every instance of the
-              kernel), exactly (the plain version on 81 of the rows);
+              kernel), exactly (the plain version on 81 of the rows,
+              copied to the CPU, where it runs on Python ints: its 32
+              calls on the card, launch-bound, took 19.7 s);
               then the leaves' and each level's time in one BN128 tree
               over 2^17 rows of width 12 and of width 0
               (bench_poseidon_fr.tree_split).
@@ -125,6 +119,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
               shapes: the LDE of each of its sections (committed,
               constant, stage 3, Q) from 2^18 to 2^19 rows and their
               leaves (the plain version on one row in 8).
+ 11. wrap     the final BN128 layer and the Groth16 wrap of phase 10's
+              aggregated proof, taken from memory (bench_e2e, scripts/
+              zkvm_e2e.py:177-220): the aggregation's verifier circuit with
+              the constant root as an input (compressor12, verkey_input),
+              proved on the card under the BN128 transcript and 16-ary
+              Poseidon-over-Fr trees (bench_e2e.final_struct) and verified;
+              then the BN254 circuit that verifies that proof
+              (build_final_main, WRAP_CONSTRAINTS constraints, domain
+              2^22), its check(), a Groth16 setup (bench_groth16.seeded(
+              bench_e2e.G16_SEED)), prove (seeded(G16_SEED + 1)) and verify
+              on the card, and the verify of a changed public, which must fail.
+              The one public must be sha256(proverAddr || publics) mod r;
+              the final zkin, the circuit's .r1cs and .wtns bytes, the
+              proof JSON and the Solidity verifier rendered from the vk
+              must equal WRAP_SHA256, the host engine's digests.  Then the
+              kernels at the wrap's shapes: the NTT at the LDE of each of
+              the final layer's sections, Poseidon-Fr at their leaves and
+              at the first tree level (the plain version on one row in
+              16); the MSM on the prove's own inputs (the A query in G1
+              and the B2 query in G2, with the witness) against the plain
+              versions of its stages (ops/ec.msm_stages_plain); the
+              fixed-base batch at setup's lane counts (G2 checked on one
+              lane in 8, G1 on one in 32); the R1CS rows (csrc/r1cs.cu: the
+              three matrices in one launch, padded, the publics in A's
+              tail) of the circuit, then of bench_groth16.long_rows at 2^16
+              rows (rows of 0 to 4,096 nonzeros, a warp for each long
+              one); the Fr NTT's coset transform of A's evaluations.  These
+              cases are the ones the kernels' line reports for the four
+              Groth16 kernels and Poseidon-Fr.
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -135,7 +158,10 @@ before it, read just after): the GL kernels in phase 4, the four Groth16
 kernels in phase 5, K1, K3 and K4 in phase 6's prove, the GL kernels in
 each of phase 7's proves and of phase 8's chunk and MEMWALK proves, the
 NTT and Poseidon-Fr in each of phase 9's proves, the NTT and Poseidon in
-each of phase 10's five layers.
+each of phase 10's five layers, the NTT and Poseidon-Fr in phase 11's
+final layer, K2 in its Groth16 setup and K1, K3 and K4 in its prove.  The
+kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr phase
+9's and 11's final layer's, the Groth16 kernels phase 11's wrap's.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and the IMADs its function needs at the least
@@ -171,11 +197,12 @@ import tempfile
 import time
 
 NBITS, WIDTH, QUERIES = 20, 8, 8
-G16_CONSTRAINTS, G16_SEED = (1 << 21) - 3, 1
+# phase 5's synthetic circuit (domain 2^18) and phase 6's (domain 2^16)
+G16_CONSTRAINTS, CLI_CONSTRAINTS, G16_SEED = (1 << 18) - 3, (1 << 16) - 3, 1
 # phase 3's shapes: the MSM's and fixed-base batch's edge cases, the Fr
-# transforms (the prove's size first, then 2^16 and the 2^22 domain of the
-# 2,177,591-constraint circuit)
-G16_CHECK_N, G16_CHECK_NTT_BITS = 1 << 16, (21, 16, 22)
+# transforms (the 2^22 domain of phase 11's wrap first, then phase 5's and
+# phase 6's domains)
+G16_CHECK_N, G16_CHECK_NTT_BITS = 1 << 16, (22, 18, 16)
 # sha256 of the proof JSON that eigen_zkvm_tpu's host engine writes for this
 # chain AIR (its file-based stark_prove, from the files that
 # bench_chain.write_chain_files writes).  The CUDA test
@@ -190,7 +217,7 @@ HOST_PROOF_SHA256 = \
 # tests/test_torch_groth16.py::test_port_on_the_card_and_host_engine_match_the_pinned_digest
 # proves both packages at this size and holds both to this digest.
 GROTH16_HOST_SHA256 = \
-    "0d7d09965b7893d2627396be998b577f2f85777eb156b3e273a1d5c94c2247a4"
+    "7ee8408ad840cb508302dbc451e38e859e9ad789ee16714e11635e9f61b86074"
 # Phase 7: the example AIRs with plookup, permutation and connection
 # arguments (eigen_zkvm_tpu_torch/examples/), at the CPU tests' 2^5 rows and
 # at 2^16, with bench_chain.chain_struct_json(nbits, ARG_QUERIES).  The
@@ -303,6 +330,26 @@ RECURSION_SHA256 = {
         "3f60ff89cc41845498b1c062bbf83474bfdaaa85252ccdcd8be5d69a078607d5",
     "aggregation":
         "e283c0ad056a1fa3fb8982c4cc6ee2eda0cf71ee743c9af86a3c843474ceb87f",
+}
+# Phase 11: the final BN128 layer of phase 10's aggregated proof and its
+# Groth16 wrap (scripts/zkvm_e2e.py:177-220; bench_e2e.run_final_and_wrap),
+# setup drawing from bench_groth16.seeded(bench_e2e.G16_SEED) and the prove
+# from seeded(G16_SEED + 1).  The digests (bench_e2e.wrap_digests:
+# the final zkin JSON, the circuit's .r1cs and .wtns bytes, the proof JSON,
+# the Solidity verifier) and the constraint count are the JAX package's
+# host engine's for the same chunks, layers and draws;
+# tests/test_torch_wrap_cuda.py::test_host_engine_gives_the_pinned_wrap_digests
+# recomputes them.
+WRAP_CONSTRAINTS = 2_177_591
+WRAP_SHA256 = {
+    "final zkin":
+        "dc9329d52150dd7473678a052a79cdb927da1e5f848be6e30237b9826f401fb6",
+    "circuit":
+        "cb6f6bcc5c37535f81c81f01dd150ae63855ca23d6ad2129e05367fac2487b81",
+    "proof":
+        "7c862dfd0983a4d1f2748be90d222bb351a8fbcf6014e59fdae511a067c0a2fd",
+    "verifier.sol":
+        "687ca5efd5a5111f973ff18e47e82053d82dac6f2d7a0b2d752db3a3f3aeaa27",
 }
 LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -584,9 +631,9 @@ def _random_scalars(dev, n: int, seed: int):
 
 def _check_groth16_kernels(dev, rng) -> dict:
     """Phase 3, second half: K1 and K2 at 2^16 with edge inputs (K1
-    against ec_jax's double-and-add), K3 at the prove's 2^21, at 2^16 and
-    at 2^22; phase 5 holds K1, K2 and K4 at the prove's and setup's own
-    shapes.
+    against ec_jax's double-and-add), K3 at the wrap's 2^22, at 2^18 and
+    at 2^16; phase 11 holds K1, K2, K3 and K4 at the wrap's prove's and
+    setup's own shapes.
     {kernel name: cases}."""
     import random
 
@@ -642,10 +689,10 @@ def _check_groth16_kernels(dev, rng) -> dict:
             n * (32 + 64 * g.deg) + 64 * g.deg,
             _msm_products(pts, S, g.deg == 2) * IMAD_BN254))
 
-    # K3: the transforms at the prove's 2^21 (two passes), at 2^16 and at
-    # the 2,177,591-constraint circuit's 2^22 (other splits); at 2^21 the
-    # coset round trip (the scales on the inverse transforms' last passes),
-    # the Montgomery conversion's product by a constant and the quotient
+    # K3: the transforms at the wrap's 2^22, at phase 5's 2^18 and phase
+    # 6's 2^16 (other splits); at 2^22 the coset round trip (the scales on
+    # the inverse transforms' last passes), the Montgomery conversion's
+    # product by a constant and the quotient
     k3_cases = []
     for log_n in G16_CHECK_NTT_BITS:
         m = 1 << log_n
@@ -694,12 +741,12 @@ def _r1cs_work(rows, wit, m: int) -> tuple:
     return nbytes, products * IMAD_BN254
 
 
-def _check_groth16_shapes(dev, circ, pk) -> dict:
-    """Phase 5, after the run: K1 on the prove's own inputs (the A query
+def _check_groth16_shapes(dev, circ, pk, prove_rows) -> dict:
+    """Phase 11, after the wrap: K1 on the prove's own inputs (the A query
     in G1 and the B2 query in G2 with the witness) against the plain
     versions of its stages, K2 at setup's lane counts (the G2 batch on one
     lane in 8, the G1 batch on one in 32), K4 on the circuit's three
-    matrices.
+    matrices (`prove_rows`, the prove's r1cs.Rows of them).
     {kernel name: cases}; the first case of each is the one its line
     reports."""
     from eigen_zkvm_tpu_torch import kernels
@@ -748,7 +795,7 @@ def _check_groth16_shapes(dev, circ, pk) -> dict:
     for label, c, m, n_pub in (
             ("the prove's", circ, pk.domain_size, pk.n_public + 1),
             ("long-row circuit", long, LONG_ROWS + 5, 5)):
-        rows = r1cs.build(c.constraints, dev)
+        rows = prove_rows if c is circ else r1cs.build(c.constraints, dev)
         wit = fr_ntt.to_mont(bi.to_tensor([int(v) % bn254.R for v in c.w],
                                           dev))
         k4_cases.append(_hold(
@@ -826,8 +873,8 @@ def write_arg_air(directory: str, name: str, nbits: int,
 
 
 def _cli_groth16(dev, circ, vk, pk) -> dict:
-    """Phase 6: phase 5's circuit as a .r1cs file and its witness as a
-    .wtns file, its seeded key as the port's key file, then groth16_prove,
+    """Phase 6: its circuit as a .r1cs file and its witness as a .wtns
+    file, its seeded key as the port's key file, then groth16_prove,
     groth16_verify and generate_verifier through cli.main on the card (the
     prove's kernel counts set to 0 just before it); groth16_setup, prove
     and verify of a two-constraint circuit (x * y = 35, x + y = 12) through
@@ -1193,13 +1240,13 @@ def _check_bigfield_kernels(dev, rng) -> dict:
             inp, init = _fr_states(dev, field, B, t, 7 * t)
             n_p = poseidon_fr.poseidon(field).n_rounds_p(t)
             want, p_ms = _timed_once(lambda: poseidon_fr.permute_plain(
-                field, t, inp[rows], init[rows], t))
+                field, t, inp[rows].cpu(), init[rows].cpu(), t))
             plain_ms += p_ms
             pick = poseidon_fr.plan(t, n_p, B, sms)[0]
             for lanes in poseidon_fr.lane_choices(t) + (None,):
                 def run():
                     return poseidon_fr.permute(field, t, inp, init, t, lanes)
-                errs.append(_max_abs_err(run()[rows], want))
+                errs.append(_max_abs_err(run()[rows].cpu(), want))
                 k_ms = _time_ms(run, 3)
                 launches += 1
                 print(f"  poseidon_fr {field.name} t={t} B={B} G="
@@ -1209,13 +1256,14 @@ def _check_bigfield_kernels(dev, rng) -> dict:
             imads += _fr_products(t, n_p) * B * IMAD_BN254
             nbytes += 32 * B * 2 * t
             print(f"  poseidon_fr {field.name} t={t} plain on "
-                  f"{len(rows)} rows: {p_ms:.3f} ms", flush=True)
+                  f"{len(rows)} rows (CPU): {p_ms:.3f} ms", flush=True)
         b = _bound(nbytes, imads)
         cases.append(dict(
             label=f"poseidon_fr {field.name} every t=2..17 x every group "
                   f"size and plan's pick, B={B} ({launches} launches held; "
                   f"ms and bound: plan's pick, plain_ms: the plain version "
-                  f"on {len(rows)} rows, summed over the widths)",
+                  f"on {len(rows)} rows copied to the CPU, summed over the "
+                  f"widths)",
             err=max(errs), ms=ms, plain_ms=plain_ms, **b))
         print(f"{cases[-1]['label']}: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, max_abs_err {max(errs)}", flush=True)
@@ -1260,7 +1308,8 @@ def _recursion(dev, state) -> dict:
     """Phase 10: c12 and recursive1 of phase 8's two chunk zkins, then
     their chained aggregation, on the card (each layer's kernel counts set
     to 0 just before it, read just after); the five zkins' digests and the
-    super-chunk publics."""
+    super-chunk publics.  (report, run_layers' zkins and the aggregation's
+    setup: phase 11's input)"""
     from eigen_zkvm_tpu_torch import bench_recursion
     from eigen_zkvm_tpu_torch.recursion.compressor12 import ChainMap
     from eigen_zkvm_tpu_torch.stark.engine import Engine
@@ -1274,7 +1323,7 @@ def _recursion(dev, state) -> dict:
     return dict(layers=records, super_publics_hold=(
         bench_recursion.super_publics_hold(
             state.guest, state.machine, out["aggregation"], ZKVM_CHUNKS[0],
-            ZKVM_CHUNKS[-1])))
+            ZKVM_CHUNKS[-1]))), out
 
 
 def _check_recursion_kernels(dev, rng, layer: dict) -> dict:
@@ -1315,6 +1364,105 @@ def _check_recursion_kernels(dev, rng, layer: dict) -> dict:
             rows=slice(None, None, every)))
         del leaves
     return {kernels.NTT.name: ntt_cases, kernels.POSEIDON.name: pos_cases}
+
+
+def _wrap(dev, agg: dict) -> tuple:
+    """Phase 11: the final BN128 layer of phase 10's aggregated proof, then
+    its Groth16 wrap, on the card (bench_e2e.run_final_and_wrap: each
+    stage's kernel counts set to 0 just before it, read just after; the
+    wrap's split between setup and prove), its digests held to
+    WRAP_SHA256.  (report, the final layer's record, the Wrap)"""
+    from eigen_zkvm_tpu_torch import bench_e2e
+    from eigen_zkvm_tpu_torch.stark.engine import Engine
+
+    final, rec, _, wrap = bench_e2e.run_final_and_wrap(agg, Engine(dev), dev)
+    rec["sha256_ok"] = {k: rec["digests"][k] == WRAP_SHA256[k]
+                        for k in WRAP_SHA256}
+    print(f"  the digests equal the host engine's: {rec['sha256_ok']}",
+          flush=True)
+    return dict(final=final, wrap=rec), final, wrap
+
+
+def _check_wrap_kernels(dev, rng, final: dict, wrap) -> dict:
+    """Phase 11's shapes: the NTT at the LDE of each of the final layer's
+    sections (committed, constant, stage 3, Q), Poseidon-Fr at their
+    leaves (BN128, the plain version on one row in 16) and at the first
+    tree level (2^(n+1) / 16 nodes of t = 17, the plain version on one in
+    16); then K1, K2 and K4 on the wrap's proving key and witness
+    (_check_groth16_shapes) and K3 on the prove's first coset transform
+    (A's evaluations over the 2^22 domain)."""
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.curves import bn254
+    from eigen_zkvm_tpu_torch.groth16 import groth16 as g16
+    from eigen_zkvm_tpu_torch.hash import linearhash_big as lh
+    from eigen_zkvm_tpu_torch.ops import bigint as bi
+    from eigen_zkvm_tpu_torch.ops import fr_ntt, ntt, poseidon_fr, r1cs
+    import numpy as np
+
+    nb = final["n_bits"]
+    n, ext = 1 << nb, nb + 1
+    widths = {s.replace("_2ns", ""): w for s, w in final["widths"].items()}
+    widths["const"] = final["n_const"]
+    pos = poseidon_fr.poseidon(bi.FR)
+    ntt_cases, fr_cases = [], []
+    every = 16
+    for name, w in widths.items():
+        if not w:
+            continue
+        x = _rand(rng, dev, (n, w))
+        ntt_cases.append(_hold(
+            f"ntt interpolate final {name} [2^{nb},{w}]->[2^{ext},{w}]",
+            lambda: ntt.interpolate(x, nb, ext),
+            lambda: ntt.interpolate_plain(x, nb, ext), 10, 1, 8 * w * 3 * n,
+            _ntt_imads(nb, w, True) + _ntt_imads(ext, w, False)))
+        del x
+        if w <= 4:   # packed into one Fr: no permutation
+            continue
+        leaves = _rand(rng, dev, (2 * n, w),
+                       np.tile(_edge_states(np), (1, -(-w // 12)))[:, :w])
+        n3 = -(-w // 3)
+        prods = sum(_fr_products(min(16, n3 - i) + 1,
+                                 pos.n_rounds_p(min(16, n3 - i) + 1))
+                    for i in range(0, n3, 16))
+        fr_cases.append(_hold(
+            f"poseidon_fr BN128 leaves final {name} [2^{ext},{w}] (plain: "
+            f"1 row in {every})", lambda: lh.hash_leaves(bi.FR, leaves),
+            lambda: lh.hash_leaves_plain(bi.FR, leaves[::every]), 5, 0,
+            8 * leaves.numel() + 32 * 2 * n, prods * 2 * n * IMAD_BN254,
+            rows=slice(None, None, every)))
+        del leaves
+    B = (2 * n) // 16
+    inp, init = _fr_states(dev, bi.FR, B, 17, B)
+    init.zero_()     # a node's capacity is 0
+    fr_cases.append(_hold(
+        f"poseidon_fr BN128 final tree level {B} nodes t=17 (G="
+        f"{poseidon_fr.plan(17, pos.n_rounds_p(17), B)[0]}; plain: 1 in "
+        f"{every})",
+        lambda: poseidon_fr.permute(bi.FR, 17, inp, init, 1),
+        lambda: poseidon_fr.permute_plain(bi.FR, 17, inp[::every],
+                                          init[::every], 1), 10, 0,
+        32 * B * 18, _fr_products(17, pos.n_rounds_p(17)) * B * IMAD_BN254,
+        rows=slice(None, None, every)))
+    del inp, init
+    out = {kernels.NTT.name: ntt_cases, kernels.POSEIDON_FR.name: fr_cases}
+
+    # K3: the prove's first coset transform, on A's evaluations (the
+    # prove's R1CS rows, from groth16's cache)
+    pk, circ = wrap.pk, wrap.circuit
+    m = pk.domain_size
+    log_m = m.bit_length() - 1
+    rows = g16.r1cs_rows(circ.constraints, dev)
+    wit = fr_ntt.to_mont(bi.to_tensor([int(v) % bn254.R for v in circ.w],
+                                      dev))
+    a = r1cs.evaluate(rows, wit, m, pk.n_public + 1)[0].contiguous()
+    del wit
+    out.update(_check_groth16_shapes(dev, circ, pk, rows))
+    out[kernels.FR_NTT.name] = [_hold(
+        f"fr to_coset 2^{log_m}, the wrap's A evaluations",
+        lambda: fr_ntt.to_coset(a, log_m),
+        lambda: fr_ntt.to_coset_plain(a, log_m), 10, 1, 64 * m,
+        2 * (m // 2) * log_m * IMAD_BN254 + m * IMAD_BN254)]
+    return out
 
 
 def main() -> int:
@@ -1439,7 +1587,7 @@ def main() -> int:
     if digest != HOST_PROOF_SHA256:
         return _fail("the port's proof differs from the host engine's")
 
-    # 5. Groth16 at 2^21 through the api entry points
+    # 5. Groth16 at 2^18 through the api entry points
     t0 = time.perf_counter()
     circ = bench_groth16.synthetic(G16_CONSTRAINTS, 2, G16_SEED)
     report["groth16_circuit_s"] = time.perf_counter() - t0
@@ -1470,18 +1618,22 @@ def main() -> int:
                      "engine's")
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
-    # the kernels at the shapes this run gave them, reported first
-    t0 = time.perf_counter()
-    for name, more in _check_groth16_shapes(dev, circ, pk).items():
-        cases[name] = more + cases.get(name, [])
-    report["groth16_shapes_s"] = time.perf_counter() - t0
+    del circ, pk, vk
 
-    # 6. the command line at phase 5's width: files, prove, verify, render
+    # 6. the command line on its own 2^16 circuit: files, prove, verify,
+    # render
     t0 = time.perf_counter()
+    from eigen_zkvm_tpu_torch.groth16 import api
+
+    circ = bench_groth16.synthetic(CLI_CONSTRAINTS, 2, G16_SEED)
+    pk, vk = api.groth16_setup_inplace("bn128", circ,
+                                       rng=bench_groth16.seeded(G16_SEED),
+                                       device=dev)
+    report["cli_circuit_setup_s"] = time.perf_counter() - t0
     c6 = _cli_groth16(dev, circ, vk, pk)
     report["cli_groth16"] = c6
     report["cli_groth16_s"] = time.perf_counter() - t0
-    del pk
+    del circ, pk, vk
     stages = dict(c6["stages"])
     prove_s = sum(t for k, t in c6["stages"] if not k.startswith("load"))
     print(f"cli groth16 ({report['cli_groth16_s']:.1f} s): .r1cs written "
@@ -1501,8 +1653,7 @@ def main() -> int:
     for stage, sec in c6["stages"]:
         print(f"  {stage}: {sec:.3f} s")
     if any(rc != 0 for rc in c6["rcs"].values()) or not c6["render_matches"]:
-        return _fail("a command of the port's CLI failed at the Groth16 "
-                     "phase's width")
+        return _fail("a command of the port's CLI failed on its circuit")
     if c6["launches"][kernels.R1CS.name] != 1 or any(
             c6["launches"][k.name] == 0 for k in
             (kernels.MSM, kernels.FR_NTT)):
@@ -1583,7 +1734,7 @@ def main() -> int:
     print("recursion: c12, recursive1 and the chained aggregation of phase "
           "8's chunks on the card:")
     try:
-        rec = _recursion(dev, zk_state)
+        rec, agg = _recursion(dev, zk_state)
     except (RuntimeError, AssertionError) as e:
         return _fail(f"the recursion phase failed: {e!r}")
     del zk_state
@@ -1611,13 +1762,64 @@ def main() -> int:
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
 
+    # 11. the final BN128 layer and the Groth16 wrap of phase 10's proof
+    t0 = time.perf_counter()
+    print("wrap: the final BN128 layer and the Groth16 wrap of phase 10's "
+          "aggregated proof on the card:")
+    try:
+        w11, final, wrap = _wrap(dev, agg)
+    except (RuntimeError, AssertionError) as e:
+        return _fail(f"the wrap phase failed: {e!r}")
+    del agg
+    report["wrap"] = w11
+    t1 = time.perf_counter()
+    for name, more in _check_wrap_kernels(dev, rng, final, wrap).items():
+        if name in (kernels.NTT.name,):
+            cases[name] = cases[name] + more
+        else:
+            cases[name] = more + cases.get(name, [])
+    report["wrap_shapes_s"] = time.perf_counter() - t1
+    del wrap
+    report["wrap_s"] = time.perf_counter() - t0
+    w = w11["wrap"]
+    print(f"wrap: {report['wrap_s']:.1f} s (the kernels at its shapes "
+          f"{report['wrap_shapes_s']:.1f} s)", flush=True)
+    if any(v == 4 for v in final["widths"].values()):
+        return _fail(f"a section of the final layer is 4 wide: "
+                     f"{final['widths']}")
+    if not (w["verified"] and w["tampered_rejected"]
+            and w["publics_hash_ok"]):
+        return _fail("the wrap's Groth16 proof does not verify, a changed "
+                     "public verifies, or its public is not the publics "
+                     "hash")
+    if not all(w["sha256_ok"].values()) \
+            or w["constraints"] != WRAP_CONSTRAINTS:
+        return _fail("the final layer's zkin, the wrap's circuit, proof or "
+                     "verifier differ from the host engine's")
+    if any(final["launches"][k.name] == 0
+           for k in (kernels.NTT, kernels.POSEIDON_FR)) \
+            or w["by_step"]["setup"][kernels.EC_BATCH.name] == 0 \
+            or any(w["by_step"]["prove"][k.name] == 0 for k in (
+                kernels.MSM, kernels.FR_NTT, kernels.R1CS)):
+        return _fail(f"the final layer or the wrap did not launch its "
+                     f"kernels: {final['launches']}, {w['by_step']}")
+    for k in g16_kernels:
+        launches[k.name] = w["launches"][k.name]
+    launches[kernels.POSEIDON_FR.name] = \
+        final["launches"][kernels.POSEIDON_FR.name]
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks
     if any(c["err"] != 0.0 for c in checks):
         return _fail("a kernel disagrees with its plain version at the "
-                     "Groth16 run's, the zkVM path's, the big-field "
-                     "proves' or the recursion layers' shapes")
+                     "zkVM path's, the big-field proves', the recursion "
+                     "layers' or the wrap's shapes")
 
     report["smoke_s"] = time.perf_counter() - t_start
     print(f"smoke: {report['smoke_s']:.1f} s, kernel build included")

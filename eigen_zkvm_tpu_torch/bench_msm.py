@@ -55,7 +55,7 @@ def _r1cs_step(g16, r1cs, constraints, wit_m, m: int, n_pub: int):
     import torch
 
     if hasattr(r1cs, "Rows"):
-        rows = g16._rows(constraints, wit_m.device)
+        rows = g16.r1cs_rows(constraints, wit_m.device)
         return lambda: r1cs.evaluate(rows, wit_m, m, n_pub)
     mats = g16._csr(constraints, wit_m.device)
     nc = len(constraints)

@@ -48,7 +48,7 @@ def zkin_sha256(zkin: dict) -> str:
         json.dumps(zkin, separators=(",", ":")).encode()).hexdigest()
 
 
-def _layer(label: str, engine, fn):
+def run_layer(label: str, engine, fn):
     """fn(prof) with the kernels' counts set to 0 just before and read just
     after; (fn's result, {layer, wall_s, stages, launches, peak_bytes})."""
     import torch
@@ -92,7 +92,8 @@ def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
     """c12 and recursive1 for each zkin (proofs of one PIL: `setup`, `ss`),
     then the aggregation of the recursive1 proofs (chained by `chain_map`
     when given).  Returns (layer records, {"c12": [zkin], "recursive1":
-    [zkin], "aggregation": zkin})."""
+    [zkin], "aggregation": zkin, "aggregation_setup": (StarkSetup, struct,
+    PlonkSetup)}), the last the next layer's inputs."""
     from .recursion.aggregation import aggregate_recursive1
     from .recursion.compressor12 import StarkOption, prove_compressed
     from .stark.serializer import stark_proof_to_dict
@@ -114,7 +115,7 @@ def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
 
     r1_bundle = None
     for k, z in enumerate(zkins):
-        (proof, c12_bundle), rec = _layer(
+        (proof, c12_bundle), rec = run_layer(
             f"c12 {k}", engine, lambda prof: prove_compressed(
                 z, setup, ss, StarkOption(skip_main=True),
                 n_queries=queries, engine=engine, prof=prof))
@@ -122,7 +123,7 @@ def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
         _shape(rec, c12_bundle, cz)
         report(rec)
         out["c12"].append(cz)
-        (proof, r1_bundle), rec = _layer(
+        (proof, r1_bundle), rec = run_layer(
             f"recursive1 {k}", engine, lambda prof: prove_compressed(
                 cz, c12_bundle[0], c12_bundle[1], StarkOption(),
                 n_queries=queries, force_n_bits=force, engine=engine,
@@ -132,7 +133,7 @@ def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
         report(rec)
         out["recursive1"].append(rz)
     r1_setup, r1_ss, _ = r1_bundle
-    (final, agg_bundle), rec = _layer(
+    (final, agg_bundle), rec = run_layer(
         "aggregation", engine, lambda prof: aggregate_recursive1(
             out["recursive1"], r1_setup, r1_ss, force_n_bits=force,
             n_queries=queries, chain_map=chain_map, engine=engine,
@@ -140,6 +141,7 @@ def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
     _shape(rec, agg_bundle, final)
     report(rec)
     out["aggregation"] = final
+    out["aggregation_setup"] = agg_bundle
     return records, out
 
 

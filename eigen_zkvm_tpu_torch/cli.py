@@ -217,7 +217,7 @@ def _cmd_groth16_prove(args) -> int:
     from .utils.profiler import Prof
 
     cname = _curve(args.curve_type)
-    dev = core._device(args.device)
+    dev = core.resolve_device(args.device)
     prof = args.prof or Prof("cli.groth16_prove", dev)
     constraints, n_vars, n_publics = _load_circuit(args.circuit)
     prof.tick("load r1cs")

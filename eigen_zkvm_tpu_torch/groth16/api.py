@@ -157,7 +157,7 @@ def save_pk(path: str, pk: ProvingKey):
 def load_pk(path: str, device=None) -> ProvingKey:
     """The key `save_pk` wrote, its queries on `device` (None: the current
     CUDA device; raises without one)."""
-    dev = core._device(device)
+    dev = core.resolve_device(device)
     with np.load(path, allow_pickle=False) as z:
         if int(z["version"]) != PK_VERSION:
             raise ValueError(f"{path}: proving-key file version "

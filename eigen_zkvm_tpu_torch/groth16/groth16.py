@@ -70,7 +70,7 @@ class Proof:
     c: tuple               # G1 affine
 
 
-def _device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     """`device`, or the current CUDA device (raises without one)."""
     if device is not None:
         return torch.device(device)
@@ -124,7 +124,7 @@ def setup(constraints, n_vars: int, n_publics: int, rng=None,
           device=None, prof: Prof | None = None
           ) -> tuple[ProvingKey, VerifyingKey]:
     """Circuit-specific trusted setup (groth16.setup)."""
-    dev = _device(device)
+    dev = resolve_device(device)
     prof = prof or Prof("groth16.setup", dev)
     r = R
     rand = rng or (lambda: secrets.randbelow(r - 1) + 1)
@@ -185,7 +185,10 @@ def setup(constraints, n_vars: int, n_publics: int, rng=None,
 _rows_cache: dict = {}
 
 
-def _rows(constraints, device) -> r1cs.Rows:
+def r1cs_rows(constraints, device) -> r1cs.Rows:
+    """The R1CS rows (ops/r1cs.Rows) that `prove` evaluates for
+    `constraints` on `device`: built once per constraint list, so a caller
+    holding the list a prove took gets that prove's rows."""
     key = (id(constraints), device)
     ent = _rows_cache.get(key)
     if ent is None or ent[0] is not constraints:
@@ -199,7 +202,7 @@ def _witness_h(constraints, wit: torch.Tensor, n_pub_total: int, m: int,
     """Coefficients of H = (A*B - C)/Z via coset NTTs over F_r
     (groth16._witness_h): [m - 1, 4] standard words."""
     log_m = m.bit_length() - 1
-    rows = _rows(constraints, wit.device)
+    rows = r1cs_rows(constraints, wit.device)
     prof.tick("csr")
     wit_m = fr_ntt.to_mont(wit)
     abz = r1cs.evaluate(rows, wit_m, m, n_pub_total)  # one launch, [3, m, 4]

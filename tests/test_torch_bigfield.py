@@ -96,14 +96,17 @@ def _gl_rows(rng, h: int, w: int) -> np.ndarray:
 @pytest.mark.parametrize("t", range(2, 18))
 def test_permute_plain_equals_jax_hash_ex(curve, t):
     """Every width, 0 and r - 1 among the inputs: the plain permutation's
-    t lanes and the port's Python-int hash_ex equal the JAX package's
-    hash_ex; a launch-free CPU path."""
+    t lanes (on the CPU, Python ints), the limb arithmetic's (the card's
+    plain version) and the port's Python-int hash_ex equal the JAX
+    package's hash_ex; a launch-free CPU path."""
     field, port_mod, jax_mod = CURVES[curve][:3]
     states = _states(field, t, 5, t)
     want = [jax_mod.hash_ex(s[1:], s[0], t) for s in states]
     before = kernels.counts()
     got = poseidon_fr.permute(field, t, *_split(states), n_out=t)
     assert kernels.counts() == before
+    assert [bi.to_ints(row) for row in got] == want
+    got = poseidon_fr.permute_limbs(field, t, *_split(states), n_out=t)
     assert [bi.to_ints(row) for row in got] == want
     assert [port_mod.hash_ex(s[1:], s[0], t) for s in states] == want
 

@@ -318,7 +318,7 @@ def _smoke():
 @pytest.mark.cuda
 def test_port_on_the_card_and_host_engine_match_the_pinned_digest(
         monkeypatch):
-    """chip_smoke.py's circuit (2^21 - 3 rows, domain 2^21) through the
+    """chip_smoke.py's circuit (2^18 - 3 rows, domain 2^18) through the
     port on the card and through the JAX package's host engine (its native
     C++ path); both walls and the host's Prof ticks are printed.  Both
     proofs' sha256 must be chip_smoke.GROTH16_HOST_SHA256."""

@@ -169,6 +169,10 @@ def test_proving_with_the_port_never_imports_jax():
         from eigen_zkvm_tpu_torch.recursion import (
             aggregation, circuit, compressor12, compressor12_pil, gadgets,
             plonk_setup, r1cs2plonk, stark_verifier_circuit)
+        from eigen_zkvm_tpu_torch import bench_e2e
+        from eigen_zkvm_tpu_torch.hash import poseidon_bn128
+        from eigen_zkvm_tpu_torch.recursion import (gl_in_fr,
+                                                    stark_verifier_circuit_bn)
         nc = rv32_native.NativeChunker(
             rv32_lib.program_from_asm("li a0, 5\\necall"), 0, n_bits=5)
         assert nc.final.regs[10] == 5 and len(continuations.ram_digest(
@@ -192,6 +196,15 @@ def test_proving_with_the_port_never_imports_jax():
         b.f3_inv(b.f3_mul(x, x, x))
         b.ev_pol4([x] * 4, x, x)
         assert b.check()
+        fb = circuit.CircuitBuilder(prime=bn254.R)   # the snark-field gadgets
+        g = gl_in_fr.GlCircuit(fb)
+        g.f3_inv(g.f3_input((3, 5, 7)))
+        h = gl_in_fr.PoseidonFrCircuit(fb, poseidon_bn128).hash_fr(
+            [fb.wire(fb.sig(1))], fb.W())
+        assert fb.val(h) == poseidon_bn128.hash_fr([1]) and fb.check()
+        assert callable(stark_verifier_circuit_bn.build_final_main)
+        assert [s.nBits for s in bench_e2e.final_struct(18, 4).steps] == [
+            19, 15, 11, 7, 3]
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
         assert not bad, bad
@@ -248,9 +261,41 @@ def test_port_relative_imports_stay_in_the_port():
     pkg = os.path.join(ROOT, "eigen_zkvm_tpu_torch")
     files = glob.glob(os.path.join(pkg, "**", "*.py"), recursive=True)
     assert os.path.join(pkg, "recursion", "circuit.py") in files
+    assert os.path.join(pkg, "recursion",
+                        "stark_verifier_circuit_bn.py") in files
+    assert not _unresolved_relative_imports(ROOT, files)
 
+
+def test_the_relative_import_check_catches_a_copied_jax_import(tmp_path):
+    """The check above flags the JAX package's `from ..fields import gl64`
+    pasted back into a copy of the port's on-chain verifier circuit, and
+    nothing else of the copied tree."""
+    import shutil
+
+    shutil.copytree(os.path.join(ROOT, "eigen_zkvm_tpu_torch"),
+                    tmp_path / "eigen_zkvm_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "data", "csrc",
+                                                  "__pycache__"))
+    f = tmp_path / "eigen_zkvm_tpu_torch" / "recursion" / \
+        "stark_verifier_circuit_bn.py"
+    src = f.read_text()
+    assert "from ..ops import gl as gl64mod\n" in src
+    f.write_text(src.replace("from ..ops import gl as gl64mod\n",
+                             "from ..fields import gl64 as gl64mod\n"))
+    files = glob.glob(os.path.join(tmp_path, "eigen_zkvm_tpu_torch", "**",
+                                   "*.py"), recursive=True)
+    bad = _unresolved_relative_imports(str(tmp_path), files)
+    assert [b[:3] for b in bad] == [(os.path.join(
+        "eigen_zkvm_tpu_torch", "recursion", "stark_verifier_circuit_bn.py"),
+        2, "fields")]
+
+
+def _unresolved_relative_imports(root: str, files: list) -> list:
+    """(file, level, module, ...) of each relative import in `files` (under
+    root/eigen_zkvm_tpu_torch) that names no module or package of that
+    tree."""
     def exists(parts):
-        path = os.path.join(ROOT, *parts)
+        path = os.path.join(root, *parts)
         return os.path.isfile(path + ".py") or os.path.isfile(
             os.path.join(path, "__init__.py"))
 
@@ -259,7 +304,7 @@ def test_port_relative_imports_stay_in_the_port():
         __init__.py."""
         if exists(parts + [name]):
             return True
-        init = os.path.join(ROOT, *parts, "__init__.py")
+        init = os.path.join(root, *parts, "__init__.py")
         if not os.path.isfile(init):
             return False
         with open(init) as fh:
@@ -270,19 +315,19 @@ def test_port_relative_imports_stay_in_the_port():
 
     bad = []
     for f in files:
-        here = os.path.relpath(os.path.dirname(f), ROOT).split(os.sep)
+        here = os.path.relpath(os.path.dirname(f), root).split(os.sep)
         for level, module, names in _relative_imports(f):
             base = here[: len(here) - (level - 1)]
             if level - 1 >= len(here) or base[0] != "eigen_zkvm_tpu_torch":
-                bad.append((os.path.relpath(f, ROOT), level, module))
+                bad.append((os.path.relpath(f, root), level, module))
                 continue
             if module:
                 ok = exists(base + module.split("."))
             else:
                 ok = all(defined(base, n) for n in names)
             if not ok:
-                bad.append((os.path.relpath(f, ROOT), level, module, names))
-    assert not bad, bad
+                bad.append((os.path.relpath(f, root), level, module, names))
+    return bad
 
 
 def test_cuda_sources_include_only_their_own_headers():
