@@ -148,6 +148,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               one); the Fr NTT's coset transform of A's evaluations.  These
               cases are the ones the kernels' line reports for the four
               Groth16 kernels and Poseidon-Fr.
+ 12. circom   the circom surface (bench_circom): the verifiers of phase
+              10's c12 and recursive1 of chunk 0 and its aggregation and of
+              phase 11's final BN128 layer, kept from memory
+              (bench_circom.layer_keeper) and rendered as circom text
+              (stark/pil2circom.py; the on-chain render for the final
+              layer) with the options the next layer's setup gets
+              (bench_circom.LAYER_OPTIONS); GLMulChain(1000)
+              (data/circuits/glmul_chain.circom: 1,000 chained Goldilocks
+              products emulated over BN254's Fr with inline 64-bit range
+              checks) compiled over Fr at -O2 (129,000 constraints, 2
+              publics), its .r1cs, .wtns and .sym written, then a Groth16
+              setup (seeded(bench_circom.G16_SEED)), prove (seeded(G16_SEED
+              + 1)) and verify on the card and the verify of a changed
+              public, which must fail; GLSquareChain(1100) compiled over
+              Goldilocks, packed into the compressor PIL (2^16 rows),
+              written to files and proved through the file-based
+              stark_prove on the card, which renders its verifier (and the
+              skip_main render beside it).  Every render, the three files,
+              the proof JSON and the zkin must equal CIRCOM_SHA256, the
+              JAX package's bytes.  Then K4 on GLMulChain's rows (65
+              nonzeros with power-of-two coefficients, a warp each)
+              against its plain version, exactly.
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -159,8 +181,9 @@ kernels in phase 5, K1, K3 and K4 in phase 6's prove, the GL kernels in
 each of phase 7's proves and of phase 8's chunk and MEMWALK proves, the
 NTT and Poseidon-Fr in each of phase 9's proves, the NTT and Poseidon in
 each of phase 10's five layers, the NTT and Poseidon-Fr in phase 11's
-final layer, K2 in its Groth16 setup and K1, K3 and K4 in its prove.  The
-kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr phase
+final layer, K2 in its Groth16 setup and K1, K3 and K4 in its prove, K2
+in phase 12's Groth16 setup, K1, K3 and K4 in its prove and the NTT and
+Poseidon in its compressor prove.  The kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr phase
 9's and 11's final layer's, the Groth16 kernels phase 11's wrap's.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
@@ -350,6 +373,41 @@ WRAP_SHA256 = {
         "7c862dfd0983a4d1f2748be90d222bb351a8fbcf6014e59fdae511a067c0a2fd",
     "verifier.sol":
         "687ca5efd5a5111f973ff18e47e82053d82dac6f2d7a0b2d752db3a3f3aeaa27",
+}
+# Phase 12: the circom surface (bench_circom).  The sha256 of the verifiers
+# of phase 10's c12 and recursive1 of chunk 0 and aggregation and phase
+# 11's final layer, rendered as circom text (bench_circom.LAYER_OPTIONS);
+# of GLMulChain(GLMUL_N)'s .r1cs, .wtns and .sym at -O2 and its Groth16
+# proof JSON (draws from bench_groth16.seeded(bench_circom.G16_SEED) and
+# seeded(G16_SEED + 1)); of GLSquareChain(GLSQUARE_N)'s compressor zkin
+# and the two renders of its verifier.  They are the JAX package's (its
+# compiler, simplify, Groth16 and stark_prove on its host engine, and its
+# render of its own setups of the same layers): tests/test_torch_circom_
+# cuda.py::test_host_engine_gives_the_pinned_{circuit_digests,
+# layer_renders} recompute them.
+CIRCOM_SHA256 = {
+    "c12 0":
+        "0641b70be19714828e1590b7555bd114a65077a39fc69b68c5bcf60e293f62e3",
+    "recursive1 0":
+        "dbabc1ad92687e752bd2690814ba933a293c7dd60223d6cfe78f9759f394aa8a",
+    "aggregation":
+        "26f16c974eefbf06a2001af4ca1119f1a7ea8b0e65224f1453e0399d56946998",
+    "final":
+        "ba2545e86e010ed7d1c45c295f4e6b00b8d7e4a5e5769da648724976b12a00a5",
+    "glmul .r1cs":
+        "6b7e156b1a2a1f64a18ea882dc01315feae2ca9ea8903ccc3a7b80f1618ac6af",
+    "glmul .wtns":
+        "9956e6e43a9045bc687480274fb0f6737b8731a851a314f39d9e2e8a5a1a235b",
+    "glmul .sym":
+        "2e067259f5d1ea357821d35babcadc5187f9f3b20aac78fb1ff53dbb04560e34",
+    "glmul proof":
+        "7e78fd0e7dc89868e3b206595b30f4b62da1fd426a2e1b3a4ff4b91e50803ae3",
+    "glsquare zkin":
+        "89dc51ef4deec677af8ea532295307dbb242977e2b87ce0ee3748be8c718cc75",
+    "glsquare circom default":
+        "ecaa174b83962f08be8611ea573832b5ef1f9c5badc5d2323f9066679e62eb30",
+    "glsquare circom skip_main":
+        "de6d765824c498eab124a344239be82272ba6f9cbcd27f5a7f925700eb812ca1",
 }
 LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1304,12 +1362,12 @@ def _bigfield_split(dev) -> list:
     return out
 
 
-def _recursion(dev, state) -> dict:
+def _recursion(dev, state, on_layer) -> dict:
     """Phase 10: c12 and recursive1 of phase 8's two chunk zkins, then
     their chained aggregation, on the card (each layer's kernel counts set
     to 0 just before it, read just after); the five zkins' digests and the
-    super-chunk publics.  (report, run_layers' zkins and the aggregation's
-    setup: phase 11's input)"""
+    super-chunk publics; `on_layer` keeps what phase 12 renders.  (report,
+    run_layers' zkins and the aggregation's setup: phase 11's input)"""
     from eigen_zkvm_tpu_torch import bench_recursion
     from eigen_zkvm_tpu_torch.recursion.compressor12 import ChainMap
     from eigen_zkvm_tpu_torch.stark.engine import Engine
@@ -1317,7 +1375,7 @@ def _recursion(dev, state) -> dict:
     records, out = bench_recursion.run_layers(
         state.zkins, state.setup, state.ss, Engine(dev), RECURSION_QUERIES,
         RECURSION_FORCE, ChainMap.for_machine(state.machine),
-        log=lambda line: print(line, flush=True))
+        log=lambda line: print(line, flush=True), on_layer=on_layer)
     for r in records:
         r["sha256_ok"] = r["zkin_sha256"] == RECURSION_SHA256[r["layer"]]
     return dict(layers=records, super_publics_hold=(
@@ -1366,16 +1424,18 @@ def _check_recursion_kernels(dev, rng, layer: dict) -> dict:
     return {kernels.NTT.name: ntt_cases, kernels.POSEIDON.name: pos_cases}
 
 
-def _wrap(dev, agg: dict) -> tuple:
+def _wrap(dev, agg: dict, on_layer) -> tuple:
     """Phase 11: the final BN128 layer of phase 10's aggregated proof, then
     its Groth16 wrap, on the card (bench_e2e.run_final_and_wrap: each
     stage's kernel counts set to 0 just before it, read just after; the
     wrap's split between setup and prove), its digests held to
-    WRAP_SHA256.  (report, the final layer's record, the Wrap)"""
+    WRAP_SHA256; `on_layer` keeps what phase 12 renders.  (report, the
+    final layer's record, the Wrap)"""
     from eigen_zkvm_tpu_torch import bench_e2e
     from eigen_zkvm_tpu_torch.stark.engine import Engine
 
-    final, rec, _, wrap = bench_e2e.run_final_and_wrap(agg, Engine(dev), dev)
+    final, rec, _, wrap = bench_e2e.run_final_and_wrap(agg, Engine(dev), dev,
+                                                       on_layer)
     rec["sha256_ok"] = {k: rec["digests"][k] == WRAP_SHA256[k]
                         for k in WRAP_SHA256}
     print(f"  the digests equal the host engine's: {rec['sha256_ok']}",
@@ -1463,6 +1523,71 @@ def _check_wrap_kernels(dev, rng, final: dict, wrap) -> dict:
         lambda: fr_ntt.to_coset_plain(a, log_m), 10, 1, 64 * m,
         2 * (m // 2) * log_m * IMAD_BN254 + m * IMAD_BN254)]
     return out
+
+
+def _circom(dev, layers: dict) -> tuple:
+    """Phase 12: the verifiers of phase 10's and 11's layers that `layers`
+    kept (bench_circom.layer_keeper) rendered as circom text, then
+    bench_circom's two routes on the card at the committed sizes (each
+    route's kernel counts set to 0 at its start, read around each step),
+    every digest held to CIRCOM_SHA256.  (report, GLMulChain's builder,
+    its proving key)"""
+    from eigen_zkvm_tpu_torch import bench_circom as bc
+
+    renders = {}
+    for label, kept in layers.items():
+        t0 = time.perf_counter()
+        text = bc.render(*kept, bc.LAYER_OPTIONS[label.split()[0]])
+        renders[label] = dict(s=time.perf_counter() - t0, bytes=len(text),
+                              sha256=bc.sha256(text.encode()))
+        print(f"  render {label} ({bc.LAYER_OPTIONS[label.split()[0]]}): "
+              f"{len(text)} bytes in {renders[label]['s']:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    g, b, pk = bc.groth16_route(bc.source(bc.GLMUL, bc.GLMUL_N),
+                                bc.GLMUL_INPUTS, dev)
+    c, _ = bc.compressor_route(bc.source(bc.GLSQUARE, bc.GLSQUARE_N),
+                               bc.GLSQUARE_INPUTS, dev)
+    for name, rec, shape in (
+            (f"GLMulChain({bc.GLMUL_N}) groth16", g,
+             f"{g['constraints']} constraints after O2, "
+             f"{g['wires']} wires, domain 2^{g['domain'].bit_length() - 1}"),
+            (f"GLSquareChain({bc.GLSQUARE_N}) compressor", c,
+             f"{c['constraints']} constraints, 2^{c['n_bits']} rows "
+             f"({c['n_used']} used), FRI steps {c['steps']}")):
+        print(f"  {name}: {shape}; {rec['wall_s']:.3f} s: "
+              + ", ".join(f"{st} {t:.3f}" for st, t in rec["stages"])
+              + f"; launches {rec['launches']}; peak device memory "
+              f"{(rec['peak_bytes'] or 0) / 2**30:.3f} GiB", flush=True)
+    digests = {label: r["sha256"] for label, r in renders.items()}
+    digests.update({f"glmul {k}": v for k, v in g["digests"].items()})
+    digests.update({f"glsquare {k}": v for k, v in c["digests"].items()})
+    return dict(renders=renders, groth16=g, compressor=c,
+                routes_s=time.perf_counter() - t0, digests=digests,
+                sha256_ok={k: digests.get(k) == v
+                           for k, v in CIRCOM_SHA256.items()}), b, pk
+
+
+def _check_circom_kernels(dev, circ, pk) -> dict:
+    """Phase 12's shape: K4 on GLMulChain's three matrices (the prove's
+    r1cs.Rows, from groth16's cache: rows of 65 nonzeros with power-of-two
+    coefficients on a warp each) against evaluate_plain, exactly."""
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.curves import bn254
+    from eigen_zkvm_tpu_torch.groth16 import groth16 as g16
+    from eigen_zkvm_tpu_torch.ops import bigint as bi
+    from eigen_zkvm_tpu_torch.ops import fr_ntt, r1cs
+
+    rows = g16.r1cs_rows(circ.constraints, dev)
+    wit = fr_ntt.to_mont(bi.to_tensor([int(v) % bn254.R for v in circ.w],
+                                      dev))
+    m, n_pub = pk.domain_size, pk.n_public + 1
+    return {kernels.R1CS.name: [_hold(
+        f"r1cs GLMulChain A, B, C: 3 x {rows.nc} rows, {rows.nnz} "
+        f"nonzeros ({3 * rows.nc - rows.n_short} rows on a warp), "
+        f"{rows.coefs.shape[0]} coefficients, domain {m}",
+        lambda: r1cs.evaluate(rows, wit, m, n_pub),
+        lambda: r1cs.evaluate_plain(rows, wit, m, n_pub), 20, 1,
+        *_r1cs_work(rows, wit, m))]}
 
 
 def main() -> int:
@@ -1563,7 +1688,7 @@ def main() -> int:
         with open(zkin, "rb") as f:
             proof_json = f.read()
     peak = torch.cuda.max_memory_allocated(dev)
-    t_gen = sum(sec for _, sec in prof.stages)
+    t_gen = sum(sec for st, sec in prof.stages if st != "load + setup")
     digest = hashlib.sha256(proof_json).hexdigest()
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
@@ -1733,8 +1858,12 @@ def main() -> int:
     t0 = time.perf_counter()
     print("recursion: c12, recursive1 and the chained aggregation of phase "
           "8's chunks on the card:")
+    from eigen_zkvm_tpu_torch import bench_circom
+
+    layers: dict = {}   # what phase 12 renders of phases 10 and 11
+    keep_layer = bench_circom.layer_keeper(layers)
     try:
-        rec, agg = _recursion(dev, zk_state)
+        rec, agg = _recursion(dev, zk_state, keep_layer)
     except (RuntimeError, AssertionError) as e:
         return _fail(f"the recursion phase failed: {e!r}")
     del zk_state
@@ -1767,7 +1896,7 @@ def main() -> int:
     print("wrap: the final BN128 layer and the Groth16 wrap of phase 10's "
           "aggregated proof on the card:")
     try:
-        w11, final, wrap = _wrap(dev, agg)
+        w11, final, wrap = _wrap(dev, agg, keep_layer)
     except (RuntimeError, AssertionError) as e:
         return _fail(f"the wrap phase failed: {e!r}")
     del agg
@@ -1813,13 +1942,51 @@ def main() -> int:
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
 
+    # 12. circom: the layers' verifiers rendered, compiled circuits proved
+    t0 = time.perf_counter()
+    print("circom: the verifiers of phases 10 and 11 rendered; GLMulChain "
+          "through compile and Groth16, GLSquareChain through compile and "
+          "compressor12, on the card:")
+    try:
+        cir, circ, pk = _circom(dev, layers)
+    except (RuntimeError, AssertionError) as e:
+        return _fail(f"the circom phase failed: {e!r}")
+    del layers
+    report["circom"] = cir
+    cases[kernels.R1CS.name] = cases[kernels.R1CS.name] + \
+        _check_circom_kernels(dev, circ, pk)[kernels.R1CS.name]
+    del circ, pk
+    report["circom_s"] = time.perf_counter() - t0
+    g, c = cir["groth16"], cir["compressor"]
+    print(f"circom: {report['circom_s']:.1f} s (the routes "
+          f"{cir['routes_s']:.1f} s); GLMulChain verified {g['verified']}, "
+          f"a changed public rejected {g['tampered_rejected']}; the digests "
+          f"equal the JAX package's: {cir['sha256_ok']}", flush=True)
+    if not all(cir["sha256_ok"].values()):
+        return _fail("a render, a compiled circuit's file, its proof or a "
+                     "zkin differs from the JAX package's")
+    if not (g["verified"] and g["tampered_rejected"]):
+        return _fail("the compiled circuit's Groth16 proof does not verify, "
+                     "or a changed public verifies")
+    if g["launches"]["setup"][kernels.EC_BATCH.name] == 0 or any(
+            g["launches"]["prove"][k.name] == 0 for k in (
+                kernels.MSM, kernels.FR_NTT, kernels.R1CS)) or any(
+            c["launches"][k.name] == 0 for k in gl_kernels):
+        return _fail(f"a circom route did not launch its kernels: "
+                     f"{g['launches']}, {c['launches']}")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks
     if any(c["err"] != 0.0 for c in checks):
         return _fail("a kernel disagrees with its plain version at the "
                      "zkVM path's, the big-field proves', the recursion "
-                     "layers' or the wrap's shapes")
+                     "layers', the wrap's or the compiled circuit's shapes")
 
     report["smoke_s"] = time.perf_counter() - t_start
     print(f"smoke: {report['smoke_s']:.1f} s, kernel build included")

@@ -197,7 +197,7 @@ def wrap_digests(zkin: dict, wrap: Wrap) -> dict:
             api.generate_verifier_from_vk(wrap.vk).encode()).hexdigest()}
 
 
-def run_final_and_wrap(agg: dict, engine, dev) -> tuple:
+def run_final_and_wrap(agg: dict, engine, dev, on_layer=None) -> tuple:
     """The chain's last two stages over bench_recursion.run_layers' output
     `agg` (its "aggregation" zkin and "aggregation_setup"), each under
     bench_recursion.run_layer (its Prof split, peak device memory and
@@ -207,8 +207,10 @@ def run_final_and_wrap(agg: dict, engine, dev) -> tuple:
     bench_groth16.seeded(G16_SEED) and the prove from seeded(G16_SEED + 1),
     recorded with its constraints, wires and domain, the two verifies,
     whether the public is `publics_hash`, the launches by step and
-    `wrap_digests` (and its seconds).  Returns (final record, wrap record,
-    final zkin, Wrap)."""
+    `wrap_digests` (and its seconds).  `on_layer("final", (StarkSetup,
+    struct, PlonkSetup))` is called after the final layer's record, as
+    bench_recursion.run_layers calls it.  Returns (final record, wrap
+    record, final zkin, Wrap)."""
     from . import bench_groth16, bench_recursion
 
     agg_setup, agg_ss, _ = agg["aggregation_setup"]
@@ -229,6 +231,8 @@ def run_final_and_wrap(agg: dict, engine, dev) -> tuple:
           + ", ".join(f"{st} {t:.3f}" for st, t in final["stages"])
           + f"; launches {final['launches']}; peak device memory "
           f"{final['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    if on_layer:
+        on_layer("final", (setup4, ss4, ps4))
     wrap, rec = bench_recursion.run_layer(
         "wrap", engine, lambda prof: snark_wrap(
             zkin4, setup4, ss4, device=dev,

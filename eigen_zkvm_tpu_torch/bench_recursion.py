@@ -88,12 +88,14 @@ def _shape(rec: dict, bundle, zkin: dict):
 
 
 def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
-               force: int = FORCE, chain_map=None, log=print):
+               force: int = FORCE, chain_map=None, log=print, on_layer=None):
     """c12 and recursive1 for each zkin (proofs of one PIL: `setup`, `ss`),
     then the aggregation of the recursive1 proofs (chained by `chain_map`
     when given).  Returns (layer records, {"c12": [zkin], "recursive1":
     [zkin], "aggregation": zkin, "aggregation_setup": (StarkSetup, struct,
-    PlonkSetup)}), the last the next layer's inputs."""
+    PlonkSetup)}), the last the next layer's inputs.  `on_layer(label,
+    (StarkSetup, struct, PlonkSetup))` is called after each layer's
+    record, outside its kernel counts."""
     from .recursion.aggregation import aggregate_recursive1
     from .recursion.compressor12 import StarkOption, prove_compressed
     from .stark.serializer import stark_proof_to_dict
@@ -101,8 +103,10 @@ def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
     records = []
     out = {"c12": [], "recursive1": []}
 
-    def report(rec):
+    def report(rec, bundle):
         records.append(rec)
+        if on_layer:
+            on_layer(rec["layer"], bundle)
         if log:
             log(f"  {rec['layer']}: 2^{rec['n_bits']} rows ({rec['n_used']} "
                 f"used, {rec['n_const']} constant columns, sections "
@@ -121,7 +125,7 @@ def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
                 n_queries=queries, engine=engine, prof=prof))
         cz = stark_proof_to_dict(proof, "GL")
         _shape(rec, c12_bundle, cz)
-        report(rec)
+        report(rec, c12_bundle)
         out["c12"].append(cz)
         (proof, r1_bundle), rec = run_layer(
             f"recursive1 {k}", engine, lambda prof: prove_compressed(
@@ -130,7 +134,7 @@ def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
                 prof=prof))
         rz = stark_proof_to_dict(proof, "GL")
         _shape(rec, r1_bundle, rz)
-        report(rec)
+        report(rec, r1_bundle)
         out["recursive1"].append(rz)
     r1_setup, r1_ss, _ = r1_bundle
     (final, agg_bundle), rec = run_layer(
@@ -139,7 +143,7 @@ def run_layers(zkins: list, setup, ss, engine, queries: int = QUERIES,
             n_queries=queries, chain_map=chain_map, engine=engine,
             prof=prof))
     _shape(rec, agg_bundle, final)
-    report(rec)
+    report(rec, agg_bundle)
     out["aggregation"] = final
     out["aggregation_setup"] = agg_bundle
     return records, out

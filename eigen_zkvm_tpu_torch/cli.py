@@ -4,7 +4,7 @@
 Usage: python -m eigen_zkvm_tpu_torch.cli <command> [options]
 
 Commands:
-  stark_prove         prove a PIL trace, self-verify, write zkin.json
+  stark_prove         prove a PIL trace, self-verify, write zkin.json/.circom
   stark_verify        verify a zkin.json proof against PIL + struct + const
   compressor12_setup  verifier circuit (zkin or .r1cs) -> .pil.json/.const/.exec
   compressor12_exec   witness pass -> .cm commit file
@@ -13,18 +13,18 @@ Commands:
   groth16_prove       SNARK proof of a circuit and its witness
   groth16_verify      verify a SNARK proof json
   generate_verifier   render the Solidity verifier from a vk json
+  compile             compile a circom source (supported subset) to
+                      .r1cs/.wtns/.sym
 
-The flags, names and output files are the JAX package's, with four
+The flags, names and output files are the JAX package's, with three
 differences:
   - groth16_setup and groth16_prove take --circuit as a circom .r1cs file,
     not a pickle, and groth16_prove takes --witness (.wtns or a JSON list),
     since the JAX package's pickle carries the witness inside the circuit;
+    groth16's --curve_type BLS12381 raises NotImplementedError (BN254
+    Groth16 only);
   - --pk is the port's proving-key file (groth16/api.py, save_pk /
     load_pk), not a pickle;
-  - stark_prove parses --circom, --agg_stage, --norm_stage and --skip_main
-    and raises NotImplementedError for them (the verifier-circuit render,
-    ROADMAP queue 1 item 4); groth16's --curve_type BLS12381 raises
-    NotImplementedError (BN254 Groth16 only);
   - compressor12_setup keeps, beside the .pil.json, `<pil>.setup.pkl`: the
     inner proof's starkinfo, program and const root (host objects, no
     tensor), its starkStruct and the circuit options, which
@@ -32,13 +32,17 @@ differences:
     package pickles its whole StarkSetup and PlonkSetup instead).
 stark_prove and stark_verify take a starkStruct of any verificationHashType
 the JAX package serves: GL, BN128 or BLS12381 (the big-field Merkle trees
-hash on the Poseidon-over-Fr kernel, csrc/poseidon_fr.cu).
+hash on the Poseidon-over-Fr kernel, csrc/poseidon_fr.cu).  stark_prove's
+--circom writes the verifier's circom text (stark/pil2circom.py) with
+--agg_stage, --norm_stage and --skip_main as the JAX CLI passes them:
+--norm_stage is off unless given, so the const root is a constant of the
+text by default.
 stark_prove, stark_verify, compressor12_setup (for the inner const tree),
 groth16_setup and groth16_prove run on the current CUDA device and raise
 without one; their --device flag is for the
 tests (--device cpu runs the kernels' plain versions).  groth16_verify,
-compressor12_exec, join_zkin and generate_verifier are host work.  `main` returns the exit
-code: 1 when a verifier rejects.
+compressor12_exec, join_zkin, generate_verifier and compile are host work.
+`main` returns the exit code: 1 when a verifier rejects.
 """
 from __future__ import annotations
 
@@ -48,21 +52,15 @@ import pickle
 import sys
 import time
 
-NOT_PORTED = ("the STARK-verifier circuit render (circom_out, agg_stage, "
-              "norm_stage, skip_main) is not ported yet: ROADMAP queue 1 "
-              "item 4")
-
-
 def _cmd_stark_prove(args) -> int:
     from .stark.prove import stark_prove
 
-    if args.circom or args.agg_stage or args.norm_stage or args.skip_main:
-        raise NotImplementedError(NOT_PORTED)
     t0 = time.perf_counter()
     stark_prove(args.stark_struct, args.piljson, args.const_pols,
-                args.cm_pols, zkin_out=args.output,
-                prover_addr=args.prover_addr, device=args.device,
-                prof=args.prof)
+                args.cm_pols, zkin_out=args.output, circom_out=args.circom,
+                prover_addr=args.prover_addr, agg_stage=args.agg_stage,
+                norm_stage=args.norm_stage, skip_main=args.skip_main,
+                device=args.device, prof=args.prof)
     print(f"stark_prove done in {time.perf_counter() - t0:.3f}s -> "
           f"{args.output}")
     return 0
@@ -264,6 +262,56 @@ def _cmd_generate_verifier(args) -> int:
     return 0
 
 
+def compile_files(text: str, inputs: dict, prime: int, base: str,
+                  opt: int = 2, search_paths=(), prof=None):
+    """Compile a circom source (the subset dsl/circom.py parses) with the
+    given inputs, simplify it at `opt` (0: not at all), and write its
+    .r1cs, .wtns and .sym files at `base`; `prof` gets a tick after each
+    of the three steps.  (the builder, simplify's statistics or None)"""
+    from .algebraic.r1cs_file import circuit_to_r1cs, save_r1cs
+    from .algebraic.witness import save_witness
+    from .dsl.elaborate import compile_circom, write_sym
+    from .dsl.simplify import simplify
+
+    circuit = compile_circom(text, inputs, search_paths=search_paths,
+                             prime=prime)
+    if prof:
+        prof.tick("compile")
+    stats = simplify(circuit, level=opt) if opt else None
+    if prof:
+        prof.tick(f"simplify O{opt}")
+    save_r1cs(base + ".r1cs", circuit_to_r1cs(circuit))
+    save_witness(base + ".wtns", circuit.w, circuit.P)
+    write_sym(circuit, base + ".sym")
+    if prof:
+        prof.tick("write")
+    return circuit, stats
+
+
+def _cmd_compile(args) -> int:
+    from .algebraic.r1cs_file import BLS12381_R, BN254_R
+
+    prime = {"goldilocks": 0xFFFFFFFF00000001, "bn128": BN254_R,
+             "bls12381": BLS12381_R}[args.prime]
+    inputs = {}
+    if args.input:
+        with open(args.input) as f:
+            inputs = {k: int(v) if not isinstance(v, list) else v
+                      for k, v in json.load(f).items()}
+    with open(args.circuit) as f:
+        src_text = f.read()
+    base = args.output or args.circuit.rsplit(".", 1)[0]
+    circuit, st = compile_files(src_text, inputs, prime, base, args.opt,
+                                args.link or [])
+    if st:
+        print(f"simplify O{args.opt}: {st['constraints_before']} -> "
+              f"{st['constraints_after']} constraints, "
+              f"{st['signals_before']} -> {st['signals_after']} signals")
+    print(f"compile -> {base}.r1cs / {base}.wtns / {base}.sym "
+          f"({len(circuit.constraints)} constraints, {circuit.n_vars} wires)")
+    return 0
+
+
 def _device_flag(p):
     p.add_argument("--device", default=None,
                    help="for the tests: 'cpu' runs the kernels' plain "
@@ -285,11 +333,11 @@ def main(argv=None, prof=None) -> int:
     p.add_argument("--const_pols", "-c", required=True)
     p.add_argument("--cm_pols", "-m", required=True)
     p.add_argument("--output", "-o", required=True, help="zkin.json output")
-    p.add_argument("--circom", help="verifier .circom output (not ported)")
+    p.add_argument("--circom", help="verifier .circom output")
     p.add_argument("--prover_addr", default="")
-    p.add_argument("--agg_stage", action="store_true", help="not ported")
-    p.add_argument("--norm_stage", action="store_true", help="not ported")
-    p.add_argument("--skip_main", action="store_true", help="not ported")
+    p.add_argument("--agg_stage", action="store_true")
+    p.add_argument("--norm_stage", action="store_true")
+    p.add_argument("--skip_main", action="store_true")
     _device_flag(p)
     p.set_defaults(func=_cmd_stark_prove)
 
@@ -363,6 +411,19 @@ def main(argv=None, prof=None) -> int:
     p.add_argument("--vk", required=True)
     p.add_argument("--sol", required=True)
     p.set_defaults(func=_cmd_generate_verifier)
+
+    p = sub.add_parser("compile",
+                       help="compile a circom source (supported subset)")
+    p.add_argument("--circuit", "-i", required=True, help=".circom source")
+    p.add_argument("--prime", "-p", default="bn128",
+                   choices=["bn128", "bls12381", "goldilocks"])
+    p.add_argument("--input", help="inputs json (for the witness)")
+    p.add_argument("--link", "-l", action="append", help="include dirs")
+    p.add_argument("--output", "-o", help="output basename")
+    p.add_argument("--opt", "-O", type=int, default=2, choices=[0, 1, 2],
+                   help="constraint simplification level (circom "
+                        "--O0/--O1/--O2; default O2, like circom)")
+    p.set_defaults(func=_cmd_compile)
 
     args = ap.parse_args(argv)
     args.prof = prof

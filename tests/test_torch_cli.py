@@ -318,12 +318,6 @@ def test_stark_commands_write_the_jax_cli_bytes(tmp_path):
 def test_unported_options_and_missing_card_raise(monkeypatch, tmp_path):
     files = _write_circuit_files(tmp_path, _toy_circuit())
     pk, vk = str(tmp_path / "pk"), str(tmp_path / "vk.json")
-    stark = ["stark_prove", "-s", "s", "-p", "p", "-c", "c", "-m", "m",
-             "-o", "o", "--device", "cpu"]
-    for flag in (["--circom", "v.circom"], ["--agg_stage"], ["--norm_stage"],
-                 ["--skip_main"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            cli.main(stark + flag)
     with pytest.raises(NotImplementedError):
         cli.main(["groth16_setup", "--circuit", files["r1cs"], "--pk", pk,
                   "--vk", vk, "--curve_type", "BLS12381", "--device", "cpu"])

@@ -173,6 +173,10 @@ def test_proving_with_the_port_never_imports_jax():
         from eigen_zkvm_tpu_torch.hash import poseidon_bn128
         from eigen_zkvm_tpu_torch.recursion import (gl_in_fr,
                                                     stark_verifier_circuit_bn)
+        from eigen_zkvm_tpu_torch import bench_circom
+        from eigen_zkvm_tpu_torch.dsl import circom, elaborate, simplify
+        from eigen_zkvm_tpu_torch.stark import (pil2circom,
+                                                pil2circom_onchain)
         nc = rv32_native.NativeChunker(
             rv32_lib.program_from_asm("li a0, 5\\necall"), 0, n_bits=5)
         assert nc.final.regs[10] == 5 and len(continuations.ram_digest(
@@ -205,6 +209,14 @@ def test_proving_with_the_port_never_imports_jax():
         assert callable(stark_verifier_circuit_bn.build_final_main)
         assert [s.nBits for s in bench_e2e.final_struct(18, 4).steps] == [
             19, 15, 11, 7, 3]
+        text = bench_circom.source(bench_circom.GLMUL, 2)
+        assert circom.parse(text)["main"]
+        cb = elaborate.compile_circom(text, bench_circom.GLMUL_INPUTS,
+                                      prime=bn254.R)
+        simplify.simplify(cb, 2)
+        assert cb.check() and len(cb.constraints) == 2 * 129
+        assert callable(pil2circom.pil2circom)
+        assert callable(pil2circom_onchain.render_onchain)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
         assert not bad, bad
@@ -239,6 +251,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "eigen_zkvm_tpu_torch/ops", "eigen_zkvm_tpu_torch/zkvm"} <= dirs
     assert os.path.join(ROOT, "eigen_zkvm_tpu_torch", "zkvm",
                         "rv32_native.py") in files
+    assert {os.path.join(ROOT, "eigen_zkvm_tpu_torch", *p) for p in (
+        ("dsl", "circom.py"), ("dsl", "elaborate.py"), ("dsl", "simplify.py"),
+        ("stark", "pil2circom.py"), ("stark", "pil2circom_onchain.py"),
+        ("bench_circom.py",))} <= set(files)
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
     assert not bad, bad

@@ -5,7 +5,9 @@ tests/test_torch_recursion.py holds it byte for byte) goes through a
 second verifier circuit (StarkOption(): publics and rootC as public
 inputs, the embedded const root) at its natural 2^14 rows: the port's
 compressor setup of it is the JAX package's field by field, and the
-recursive1 proof JSON is the JAX host engine's.  One torch thread.
+recursive1 proof JSON is the JAX host engine's.  The c12 layer's
+verifier rendered as circom text (stark/pil2circom.py) is the JAX
+package's, with and without agg_stage.  One torch thread.
 """
 import json
 
@@ -13,8 +15,9 @@ import numpy as np
 import pytest
 
 from eigen_zkvm_tpu.recursion import compressor12 as j_c12
+from eigen_zkvm_tpu.stark import pil2circom as j_p2c
 from eigen_zkvm_tpu.stark.serializer import stark_proof_to_dict as j_dict
-from eigen_zkvm_tpu_torch import convert
+from eigen_zkvm_tpu_torch import bench_circom, convert
 from eigen_zkvm_tpu_torch.bench_chain import pil_to_json
 from eigen_zkvm_tpu_torch.recursion import compressor12
 from eigen_zkvm_tpu_torch.stark.serializer import stark_proof_to_dict
@@ -72,3 +75,18 @@ def test_recursive1_proof_is_the_jax_packages(c12):
     got = stark_proof_to_dict(proof, "GL")
     assert got == j_dict(j_proof, "GL")
     assert got["publics"][0] == c12["zkin"]["publics"][0]
+
+
+@pytest.mark.parametrize("options", [
+    {}, {"verkey_input": True, "agg_stage": True}, {"skip_main": True}],
+    ids=["recursive1", "aggregation", "skip_main"])
+def test_c12_layer_render_is_the_jax_text(c12, options):
+    """The c12 proof's verifier as circom text, with the options the next
+    layer's setup gets (bench_circom.LAYER_OPTIONS), byte for byte."""
+    j_st, j_ss, j_ps = c12["j_bundle"]
+    want = j_p2c.pil2circom(j_ps.pil, j_st.const_root, j_ss, j_st.starkinfo,
+                            j_st.program, j_p2c.StarkOption(**options))
+    got = bench_circom.render(c12["psetup"].pil, c12["setup"], c12["ss"],
+                              options)
+    assert got == want
+    assert ("template Main()" in got) == (not options.get("skip_main"))
