@@ -65,7 +65,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               sha256 must equal ARG_SHA256, the host engine's digest.
   8. zkvm     zkVM chunk proving through eigen_zkvm_tpu_torch/zkvm/: the
               native RV32 executor built with g++, the in-guest secp256k1
-              ecrecover (data/guests/ecrecover.elf.gz) loaded and run to its
+              ecrecover (data/guests/ecrecover.elf.gz, built by the port's
+              C compiler zkvm/cc.py, which tests/test_torch_rv32.py holds)
+              loaded and run to its
               end in 2^16-row continuation chunks (239, 15,642,943
               cycles), the RV32IM machine (375 committed, 179 constant
               columns, 99 plookups) set up once on the card, then chunks 0
@@ -76,7 +78,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               Chunk 0's stark_gen runs beside nvidia-smi's utilization
               samples (its busy share and device time); both chunks' zkins
               stay for phase 10.  Then the MiniRV machine's MEMWALK guest
-              over three or more 2^10-row chunks with a 64-word RAM image
+              over two 2^10-row chunks with a 64-word RAM image
               through zkvm_execute_and_prove on the card.
               The NTT and Poseidon kernels are held at this path's widths:
               the LDE [2^16, 375] -> [2^17, 375] and the leaves of
@@ -170,6 +172,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
               JAX package's bytes.  Then K4 on GLMulChain's rows (65
               nonzeros with power-of-two coefficients, a warp each)
               against its plain version, exactly.
+ 13. guests   the zkVM guests (zkvm/{evm,guests_llvm,guest_evm_c}.py): each
+              committed guest ELF run to its end on phase 8's native
+              executor, its a0 against its oracle: the three LLVM-built
+              guests (data/llvm_guests/, guests_llvm.*_expected()) and the
+              EVM interpreter guest on the token contract
+              (data/guests/evm_token.elf.gz, guest_evm_c.TOKEN_A0, word 0
+              of evm_mirror's post-state digest); then the EIP-1559 value
+              transfer (data/guests/transfer_state.json, a made-up state
+              test in the reference's format) proved on the card through
+              evm.prove_state_test at 2^11 rows, 512 rows a chunk: one
+              RV32IM setup, two chunks proved, verified and chained; the
+              last chunk's mem_out* equal to the digest of the post-state
+              image, whose accounts equal the file's postState (both held
+              by prove_state_test); each chunk's zkin sha256 equal to
+              GUESTS_SHA256, the host engine's digest.  Setup and each
+              chunk's stages are printed.  Then the NTT at the LDE of the
+              machine's committed section, [2^11, 375] -> [2^12, 375], and
+              Poseidon at its leaves, every row, against their plain
+              versions.
+              These guests are built on the CPU by the port's toolchains
+              (zkvm/cc.py on pycparser, zkvm/llvm_backend.py on
+              libLLVM-15), which this script never imports: it proves
+              committed or hand-assembled guests only.
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -183,7 +208,8 @@ NTT and Poseidon-Fr in each of phase 9's proves, the NTT and Poseidon in
 each of phase 10's five layers, the NTT and Poseidon-Fr in phase 11's
 final layer, K2 in its Groth16 setup and K1, K3 and K4 in its prove, K2
 in phase 12's Groth16 setup, K1, K3 and K4 in its prove and the NTT and
-Poseidon in its compressor prove.  The kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr phase
+Poseidon in its compressor prove, the NTT and Poseidon in phase 13's
+transfer prove.  The kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr phase
 9's and 11's final layer's, the Groth16 kernels phase 11's wrap's.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
@@ -309,7 +335,7 @@ rl:
 done:
     halt
 """
-MEMWALK_TAPE, MEMWALK_NBITS, MEMWALK_RAM = [450, 48], 10, 64
+MEMWALK_TAPE, MEMWALK_NBITS, MEMWALK_RAM = [280, 48], 10, 64
 # Phase 9: big-field eSTARK proves at the reference final layer's shape
 # (scripts/zkvm_e2e.py:183-188: nBits + 1, then down by 4 while above 5),
 # the struct bench_chain.chain_struct_json(16, 8, hash, "final").  The
@@ -409,6 +435,19 @@ CIRCOM_SHA256 = {
     "glsquare circom skip_main":
         "de6d765824c498eab124a344239be82272ba6f9cbcd27f5a7f925700eb812ca1",
 }
+# Phase 13: the zkVM guests.  The EVM value-transfer guest (zkvm/evm.py's
+# TRANSFER_GUEST) on the committed state test data/guests/
+# transfer_state.json, proved through evm.prove_state_test at
+# 2^bench_guests.NBITS rows, bench_guests.BUDGET rows a chunk (two chunks),
+# bench_guests.QUERIES queries.  The digests are the zkin JSON's sha256
+# that eigen_zkvm_tpu's host engine writes for the same chunks (its
+# prove_state_test on the same file);
+# tests/test_torch_evm.py::test_host_engine_gives_the_pinned_guests_digests
+# recomputes them.
+GUESTS_SHA256 = (
+    "28b1d4c9885674c07003e0e4a4d51984462d365227485093e0ac48de1443e9ae",
+    "5c8a92b1d625c7b783e64e7ccb7450db2b4e809a4479f2346c3a7e796944f2de",
+)
 LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -1590,6 +1629,51 @@ def _check_circom_kernels(dev, circ, pk) -> dict:
         *_r1cs_work(rows, wit, m))]}
 
 
+def _guests(dev) -> dict:
+    """Phase 13: the committed guest ELFs on the native executor, then the
+    EVM transfer guest proved on the card (bench_guests.prove_transfer:
+    the NTT's and Poseidon's counts set to 0 just before, read just
+    after), each chunk's zkin sha256 against GUESTS_SHA256."""
+    from eigen_zkvm_tpu_torch import bench_guests
+
+    out = {"elfs": bench_guests.run_elfs()}
+    for r in out["elfs"]:
+        print(f"  {r['name']}: {r['cycles']} cycles in {r['s']:.3f} s on "
+              f"the native executor, a0 {r['a0']} (oracle {r['want']}): "
+              f"{r['ok']}", flush=True)
+    out.update(bench_guests.prove_transfer(dev))
+    out["sha256_ok"] = out["zkin_sha256"] == list(GUESTS_SHA256)
+    return out
+
+
+def _check_guests_kernels(dev, rng, width: int) -> dict:
+    """Phase 13's widths: the NTT at the LDE of the transfer machine's
+    committed section, [2^11, width] -> [2^12, width] (the iNTT one leaf of
+    an odd column count, then the coset NTT), and Poseidon at that LDE's
+    leaves, every row against the plain version."""
+    from eigen_zkvm_tpu_torch import bench_guests, kernels
+    from eigen_zkvm_tpu_torch.ops import ntt, poseidon
+    import numpy as np
+
+    nb, w = bench_guests.NBITS, width
+    n, ext = 1 << nb, nb + 1
+    x = _rand(rng, dev, (n, w))
+    ntt_case = _hold(f"ntt interpolate guests [2^{nb},{w}]->[2^{ext},{w}]",
+                     lambda: ntt.interpolate(x, nb, ext),
+                     lambda: ntt.interpolate_plain(x, nb, ext), 10, 1,
+                     8 * w * 3 * n,
+                     _ntt_imads(nb, w, True) + _ntt_imads(ext, w, False))
+    del x
+    leaves = _rand(rng, dev, (2 * n, w),
+                   np.tile(_edge_states(np), (1, -(-w // 12)))[:, :w])
+    pos_case = _hold(f"poseidon leaves guests [2^{ext},{w}]",
+                     lambda: poseidon.hash_leaves(leaves, w),
+                     lambda: poseidon.hash_leaves_plain(leaves, w), 10, 0,
+                     8 * (leaves.numel() + leaves.shape[0] * 4),
+                     POSEIDON_IMADS * _leaf_perms(w) * leaves.shape[0])
+    return {kernels.NTT.name: [ntt_case], kernels.POSEIDON.name: [pos_case]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     os.environ.setdefault("EIGEN_ZKVM_SYNC", "1")
@@ -1603,8 +1687,14 @@ def main() -> int:
         return _fail(f"the port's package is not beside {__file__}")
     sys.path.insert(0, ROOT)
     from eigen_zkvm_tpu_torch import bench_zkvm
-    if not os.path.isfile(bench_zkvm.GUEST):
-        return _fail(f"the guest fixture {bench_zkvm.GUEST} is missing")
+    from eigen_zkvm_tpu_torch.zkvm import guest_evm_c, guests_llvm
+    fixtures = [bench_zkvm.GUEST, guest_evm_c.TOKEN_ELF,
+                os.path.join(ROOT, "eigen_zkvm_tpu_torch", "data", "guests",
+                             "transfer_state.json")] + [
+        guests_llvm.fixture_path(n) for n in sorted(guests_llvm.GUESTS)]
+    missing = [f for f in fixtures if not os.path.isfile(f)]
+    if missing:
+        return _fail(f"a guest fixture is missing: {missing}")
     import numpy as np
 
     from eigen_zkvm_tpu_torch import bench_chain, kernels
@@ -1826,7 +1916,7 @@ def main() -> int:
     if any(r["launches"][n] == 0 for r in z["chunks"] for n in gl_names) \
             or any(z["memwalk"]["launches"][n] == 0 for n in gl_names):
         return _fail("a zkVM prove did not launch the NTT and Poseidon")
-    if z["memwalk"]["chunks"] < 3 or not z["memwalk"]["sum_ok"]:
+    if z["memwalk"]["chunks"] < 2 or not z["memwalk"]["sum_ok"]:
         return _fail("the MEMWALK chain is short or its result is wrong")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
@@ -1974,6 +2064,53 @@ def main() -> int:
             c["launches"][k.name] == 0 for k in gl_kernels):
         return _fail(f"a circom route did not launch its kernels: "
                      f"{g['launches']}, {c['launches']}")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
+    # 13. the zkVM guests: the committed ELFs run, the EVM transfer proved
+    from eigen_zkvm_tpu_torch import bench_guests
+
+    t0 = time.perf_counter()
+    print("guests: the committed guest ELFs on the native executor; the EVM "
+          "transfer guest proved on the card through evm.prove_state_test:")
+    try:
+        gst = _guests(dev)
+    except (RuntimeError, AssertionError) as e:
+        return _fail(f"the guests phase failed: {e!r}")
+    report["guests"] = gst
+    report["guests_s"] = time.perf_counter() - t0
+    setup_s = sum(sec for _, sec in gst["setup"])
+    print(f"  transfer: setup {setup_s:.3f} s ("
+          + ", ".join(f"{st} {sec:.3f}" for st, sec in gst["setup"]) + ")",
+          flush=True)
+    for k, stages in enumerate(gst["stages"]):
+        print(f"  chunk {k}: {sum(sec for _, sec in stages):.3f} s: "
+              + ", ".join(f"{st} {sec:.3f}" for st, sec in stages)
+              + f"; zkin sha256 {gst['zkin_sha256'][k][:16]}...",
+              flush=True)
+    print(f"guests: {report['guests_s']:.1f} s (the prove "
+          f"{gst['prove_s']:.1f} s); {gst['n_chunks']} chunks of "
+          f"2^{bench_guests.NBITS} rows, status {gst['status']}, gas "
+          f"{gst['gas_used']}; chain holds {gst['chain_holds']}, the "
+          f"post-state's accounts hold {gst['post_ok']}; the zkins equal "
+          f"the host engine's: "
+          f"{gst['sha256_ok']}; launches {gst['launches']}", flush=True)
+    if not all(r["ok"] for r in gst["elfs"]):
+        return _fail("a committed guest ELF did not run to its oracle")
+    if gst["n_chunks"] != 2 or not (gst["chain_holds"] and gst["post_ok"]):
+        return _fail("the transfer guest's chunks do not chain, or its "
+                     "post-state does not hold")
+    if not gst["sha256_ok"]:
+        return _fail("a transfer chunk's proof differs from the host "
+                     "engine's")
+    if any(gst["launches"][n] == 0 for n in gl_names):
+        return _fail(f"the transfer guest's prove did not launch the NTT "
+                     f"and Poseidon: {gst['launches']}")
+    for name, more in _check_guests_kernels(dev, rng, gst["width"]).items():
+        cases[name] = cases[name] + more
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
     report["foreign_modules"] = foreign

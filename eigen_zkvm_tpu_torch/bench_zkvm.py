@@ -3,9 +3,8 @@
     python -m eigen_zkvm_tpu_torch.bench_zkvm --chunks 0 1 --count --profile
 
 The guest is the in-guest secp256k1 ecrecover (the ELF, gzip-compressed in
-data/guests/ecrecover.elf.gz, built from
-eigen_zkvm_tpu/zkvm/guest_secp256k1.py by the JAX package's C compiler:
-15,642,943 cycles).  The native executor (zkvm/rv32_native.py) runs it
+data/guests/ecrecover.elf.gz, built from zkvm/guest_secp256k1.py by the
+port's C compiler, zkvm/cc.py: 15,642,943 cycles).  The native executor (zkvm/rv32_native.py) runs it
 and splits it into 2^16-row continuation chunks (239); the RV32IM
 machine's PIL and constants are built and set up once (StarkSetup on the
 card, `zkvm.lib.default_struct(16, 4)`); then each chunk asked for is

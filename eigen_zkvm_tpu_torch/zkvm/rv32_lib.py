@@ -107,9 +107,12 @@ def rv32_execute_and_prove(program, entry: int = 0, n_bits: int = 12,
                            ram_words: int | None = None, image0=None,
                            regs0=None, ss=None, n_queries: int = 2,
                            rows_budget: int | None = None,
-                           mem_base: int = 0, device=None):
+                           mem_base: int = 0, device=None, prof=None):
     """Full pipeline for real RV32IM machine code, proved on `device`.
-    Returns (proofs, publics_list, machine, setup, ss)."""
+    Returns (proofs, publics_list, machine, setup, ss).  A `prof`
+    (utils/profiler.Prof) gets "execute", "machine", StarkSetup's two
+    ticks, then rv32_prove_only's ticks of each chunk in turn (each
+    chunk's end at its "verify")."""
     engine = Engine(device)
     if isinstance(program, str):
         program = program_from_asm(program)
@@ -117,17 +120,22 @@ def rv32_execute_and_prove(program, entry: int = 0, n_bits: int = 12,
                                          ram_words=ram_words, image0=image0,
                                          regs0=regs0, rows_budget=rows_budget,
                                          mem_base=mem_base)
+    if prof is not None:
+        prof.tick("execute")
     machine = Rv32Machine(program, n_bits, ram_words=ram_words,
                           mem_base=mem_base)
+    if prof is not None:
+        prof.tick("machine")
     ss = ss or default_struct(n_bits, n_queries)
-    setup = StarkSetup(machine.const_pols, machine.pil, ss, engine)
+    setup = StarkSetup(machine.const_pols, machine.pil, ss, engine,
+                       prof=prof)
     proofs, publics_list = [], []
     for k, (states, image_in) in enumerate(chunks):
         with structlog.span("rv32.chunk_prove", chunk=k, rows=len(states),
                             nbits=n_bits,
                             continuations=ram_words is not None):
             proof, pubs = rv32_prove_only(machine, setup, ss, states,
-                                          image_in, device=engine)
+                                          image_in, device=engine, prof=prof)
         proofs.append(proof)
         publics_list.append(pubs)
     if not check_chain_publics(publics_list):

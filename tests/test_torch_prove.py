@@ -177,6 +177,17 @@ def test_proving_with_the_port_never_imports_jax():
         from eigen_zkvm_tpu_torch.dsl import circom, elaborate, simplify
         from eigen_zkvm_tpu_torch.stark import (pil2circom,
                                                 pil2circom_onchain)
+        from eigen_zkvm_tpu_torch.zkvm import (
+            cc, evm, guest_evm_c, guest_keccak, guest_lr, guest_secp256k1,
+            guests, guests_llvm, llvm_backend)
+        assert cc.c_execute("int main() { return 6 * 7; }")[1] == 42
+        assert guest_secp256k1.P == 2**256 - 2**32 - 977
+        assert guest_keccak.keccak256_ref(b"").hex().startswith("c5d246")
+        assert guest_lr.lr_reference([(1, 3), (2, 5)]) == (2 << 16, 1 << 16)
+        assert evm.evm256_reference(bytes([0x60, 7]))[0] == 7
+        assert len(guests.FIBONACCI) and guest_evm_c.TOKEN_A0
+        assert len(guests_llvm.load_fixture("crc32")) > 0
+        llvm_backend.available()
         nc = rv32_native.NativeChunker(
             rv32_lib.program_from_asm("li a0, 5\\necall"), 0, n_bits=5)
         assert nc.final.regs[10] == 5 and len(continuations.ram_digest(
@@ -255,9 +266,50 @@ def test_port_sources_import_nothing_of_the_jax_package():
         ("dsl", "circom.py"), ("dsl", "elaborate.py"), ("dsl", "simplify.py"),
         ("stark", "pil2circom.py"), ("stark", "pil2circom_onchain.py"),
         ("bench_circom.py",))} <= set(files)
+    assert {os.path.join(ROOT, "eigen_zkvm_tpu_torch", "zkvm", f"{m}.py")
+            for m in ("cc", "llvm_backend", "guests_llvm", "guest_keccak",
+                      "guest_secp256k1", "guest_evm_c", "evm", "guest_lr",
+                      "guests")} <= set(files)
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
     assert not bad, bad
+
+
+def test_chip_smoke_needs_neither_pycparser_nor_libllvm():
+    """chip_smoke.py imports neither toolchain (the card's machine has
+    neither pycparser nor libLLVM), and what its guests phase imports loads
+    and runs the committed guests with pycparser blocked and no libLLVM."""
+    names = set()
+    for path in (os.path.join(ROOT, "chip_smoke.py"), os.path.join(
+            ROOT, "eigen_zkvm_tpu_torch", "bench_guests.py")):
+        names.update(_imports(path))
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                names.update(f"{node.module}.{a.name}" for a in node.names)
+    assert not [n for n in names if n.split(".")[-1] in (
+        "cc", "llvm_backend", "pycparser")], names
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["pycparser"] = None     # any import of it fails
+        import chip_smoke
+        from eigen_zkvm_tpu_torch import bench_guests
+        runs = bench_guests.run_elfs()
+        assert len(runs) == 4 and all(r["ok"] for r in runs), runs
+        from eigen_zkvm_tpu_torch.zkvm import evm
+        assert evm.run_evm256(bytes([0x60, 7]))[0] == 7
+        bad = [m for m in sys.modules if m.split(".")[-1] in (
+            "cc", "llvm_backend", "pycparser") and sys.modules[m]]
+        assert not bad, bad
+        print("NO-TOOLCHAIN")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "NO-TOOLCHAIN" in r.stdout
 
 
 def _relative_imports(path):

@@ -7,8 +7,9 @@ that spans four chunks, byte for byte, with the port proving on the CPU
 tensor version a card runs) and the JAX package on its host engine.
 
 The ecrecover guest is the committed fixture
-eigen_zkvm_tpu_torch/data/guests/ecrecover.elf.gz (gzip), which the JAX package's C
-compiler rebuilds byte for byte (where pycparser is installed).  The last
+eigen_zkvm_tpu_torch/data/guests/ecrecover.elf.gz (gzip), which the port's C
+compiler (zkvm/cc.py) and the JAX package's both rebuild byte for byte
+(where pycparser is installed).  The last
 tests prove its chunk 0 on the card (marked cuda) and recompute, on the
 JAX package's host engine, the digests chip_smoke.py holds the card's
 proofs to (marked slow: about six minutes on one core):
@@ -361,6 +362,20 @@ def test_fixture_is_what_the_jax_compiler_builds(guest_bytes):
     pytest.importorskip("pycparser")
     from eigen_zkvm_tpu.zkvm import guest_secp256k1 as g
     from eigen_zkvm_tpu.zkvm.cc import c_to_elf
+
+    priv = 0xC0FFEE254729296A45A3885639AC7E10F9D54979787FA3A62E9E0C2F1B1B1B1B
+    e = int.from_bytes(g.keccak256_ref(b"round-4 ecrecover vector"), "big")
+    k = 0xA1B2C3D4E5F60718293A4B5C6D7E8F901122334455667788991011121314D00D
+    v, r, s = g.sign(e, priv, k)
+    assert c_to_elf(g.build_guest_source(e, v, r, s)) == guest_bytes
+
+
+def test_fixture_is_what_the_port_compiler_builds(guest_bytes):
+    """The same ELF from the port's own toolchain: zkvm/cc.c_to_elf of the
+    port's guest_secp256k1 source for the same signature."""
+    pytest.importorskip("pycparser")
+    from eigen_zkvm_tpu_torch.zkvm import guest_secp256k1 as g
+    from eigen_zkvm_tpu_torch.zkvm.cc import c_to_elf
 
     priv = 0xC0FFEE254729296A45A3885639AC7E10F9D54979787FA3A62E9E0C2F1B1B1B1B
     e = int.from_bytes(g.keccak256_ref(b"round-4 ecrecover vector"), "big")
