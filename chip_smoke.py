@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. probe    a CUDA device must be present; prints the card's name and
               power limit as nvidia-smi reports them.
-  2. build    compiles eigen_zkvm_tpu_torch/csrc/*.cu with nvcc (sm_90a).
+  2. build    compiles eigen_zkvm_tpu_torch/csrc/*.cu with nvcc (sm_90a),
+              one job a source, all started together; prints each job's
+              seconds and ptxas report, slowest first.
   3. kernels  the device field primitives (csrc/gl.cuh) against Python
               integers on every ordered pair of their edge operands and 2^20
               random pairs; then each kernel against its plain PyTorch
@@ -195,6 +197,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (zkvm/cc.py on pycparser, zkvm/llvm_backend.py on
               libLLVM-15), which this script never imports: it proves
               committed or hand-assembled guests only.
+ 14. bls      BLS12-381 Groth16, the SNARK of the reference's simple_bls.sh:
+              BLS12-381's Fq and its Fq2 (csrc/bn254.cuh row 3, 12 limbs)
+              against Python ints on their edge operands and 2^20 random
+              pairs (2^16 for Fq2); bench_groth16's synthetic circuit over
+              BLS12-381's r at phase 5's shape (2^18 - 3 constraints, 2
+              publics, domain 2^18, the same seeds) through
+              groth16_setup_inplace, groth16_prove_inplace and
+              groth16_verify_inplace("bls12381", ...) on the card: the
+              verifier accepts, a changed public is rejected, the BLS
+              instances of the four kernels launch, and the proof JSON's
+              sha256 must equal BLS_GROTH16_HOST_SHA256, the host engine's
+              digest.  Then, after the counts are read, the four kernels
+              at BLS12-381 against their plain versions, exactly: K1 on
+              the prove's own A (G1) and B2 (G2) inputs against
+              ec.msm_stages_plain and at 2^13 points with phase 3's edge
+              cases (bit 254 set added) against the double-and-add (cut
+              from 2^16: launch-bound, 255 rounds whatever n); K2 at
+              setup's lane counts (G2 on one lane in 8, G1 on one in 32);
+              K3 forward, inverse, the coset round trip, the product by a
+              constant and the quotient at 2^18; K4 on the prove's rows.
+              These cases are the ones the kernels' line reports for the
+              BLS12-381 kernels.
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -209,8 +233,10 @@ each of phase 10's five layers, the NTT and Poseidon-Fr in phase 11's
 final layer, K2 in its Groth16 setup and K1, K3 and K4 in its prove, K2
 in phase 12's Groth16 setup, K1, K3 and K4 in its prove and the NTT and
 Poseidon in its compressor prove, the NTT and Poseidon in phase 13's
-transfer prove.  The kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr phase
-9's and 11's final layer's, the Groth16 kernels phase 11's wrap's.
+transfer prove, the BLS12-381 kernels in phase 14's setup and prove.
+The kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr
+phase 9's and 11's final layer's, the Groth16 kernels phase 11's wrap's,
+the BLS12-381 instances phase 14's.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and the IMADs its function needs at the least
@@ -220,8 +246,9 @@ products (butterflies and scales of a radix-2 transform, the S-boxes and
 linear layers of the Poseidon opt schedule), each priced at the fewest
 32-bit multiply-adds the ISA allows for it.  A BN254 product is priced at
 2 * 8^2 = 128 (the 8x8 limb products of a*b and of the Montgomery
-reduction); a mixed addition at 11 products (7M + 4S; 33 Fq products in
-G2).  An MSM needs, at the least over c, one mixed addition for each
+reduction), and so is one over BLS12-381's r (8 limbs too); one over
+BLS12-381's Fq at 2 * 12^2 = 288; a mixed addition at 11 products (7M +
+4S; 33 Fq products in G2).  An MSM needs, at the least over c, one mixed addition for each
 nonzero c-bit digit of a finite point's scalar and 2^(c+1) a window for
 the bucket reduction; a fixed-base lane one for each nonzero 8-bit digit
 after its first, and 7 products for its affine result; a transform
@@ -230,8 +257,8 @@ is not +-1, with 4 bytes a row offset and a wire and 2 or 4 a coefficient
 index; a big-field Poseidon permutation of width t 8 (3t + t^2) products
 in its full rounds and n_p (2t + 2) in its partial rounds (the field
 product priced as BN254's, 128).  No single PyTorch call computes a
-Goldilocks NTT, a Poseidon permutation, a BN254 MSM or an Fr NTT, so
-`library_ms` is null.
+Goldilocks NTT, a Poseidon permutation, an MSM or an Fr NTT over these
+fields, so `library_ms` is null.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.
@@ -448,6 +475,19 @@ GUESTS_SHA256 = (
     "28b1d4c9885674c07003e0e4a4d51984462d365227485093e0ac48de1443e9ae",
     "5c8a92b1d625c7b783e64e7ccb7450db2b4e809a4479f2346c3a7e796944f2de",
 )
+# Phase 14: BLS12-381 Groth16 (the SNARK of the reference's simple_bls.sh)
+# on bench_groth16.synthetic over BLS12-381's r at phase 5's shape
+# (G16_CONSTRAINTS rows, 2 publics, domain 2^18), setup drawing from
+# seeded(G16_SEED), the prove from seeded(G16_SEED + 1).  The digest is the
+# proof JSON's sha256 that eigen_zkvm_tpu's host engine (its native C++
+# BLS12-381 path, native.ec_bls12381) writes for the same circuit and
+# draws; tests/test_torch_groth16_bls.py::
+# test_host_engine_gives_the_pinned_bls_digest recomputes it.
+BLS_GROTH16_HOST_SHA256 = \
+    "3cf996ffbaee9f47a9999f88bc5e4490a985fd37691c5afede669c36d6b67284"
+# K1's double-and-add holds in phase 14: launch-bound (255 rounds of
+# batched point formulas whatever n), so n is cut to 2^13 points
+BLS_CHECK_N = 1 << 13
 LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -469,8 +509,10 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 POSEIDON_IMADS = (118 * (2 * IMAD_SQR + 2 * IMAD_MUL) + 7 * 144 * IMAD_SMALL
                   + (144 + 22 * 23) * IMAD_MUL)
 # Fewest IMADs for one BN254 Montgomery product (Fq or Fr): 8x8 limb
-# products for a*b and 8x8 for the reduction's m*q
+# products for a*b and 8x8 for the reduction's m*q; BLS12-381's r is 8
+# limbs too, its Fq 12: 12x12 and 12x12
 IMAD_BN254 = 2 * 8 * 8
+IMAD_BLS_FQ = 2 * 12 * 12
 MADD_PRODUCTS = 11   # madd-2007-bl: 7M + 4S
 
 
@@ -678,17 +720,18 @@ def _check_kernels(dev, rng) -> dict:
     return {kernels.NTT.name: ntt_cases, kernels.POSEIDON.name: pos_cases}
 
 
-def _msm_products(points, scalars, g2: bool) -> int:
+def _msm_products(points, scalars, g2: bool, nbits: int = 254) -> int:
     """Fq products of the least bucket-method MSM of these inputs: min over
     c of the mixed additions it needs, one for each nonzero c-bit digit of a
     finite point's scalar (the kernel's entries) and 2^(c+1) for each
-    window's bucket reduction, at 11 products each (33 in G2)."""
+    window's bucket reduction, at 11 products each (33 in G2); scalars of
+    `nbits` bits (254 on BN254, 255 on BLS12-381)."""
     from eigen_zkvm_tpu_torch.ops import ec
 
     live = scalars[~(points.flatten(1) == 0).all(1)]
-    adds = min(sum(int((ec.digits(part, c) != 0).sum())
+    adds = min(sum(int((ec.digits(part, c, -(-nbits // c)) != 0).sum())
                    for part in live.split(1 << 19))
-               + -(-254 // c) * (1 << (c + 1)) for c in range(1, 25))
+               + -(-nbits // c) * (1 << (c + 1)) for c in range(1, 25))
     return adds * MADD_PRODUCTS * (3 if g2 else 1)
 
 
@@ -708,21 +751,23 @@ def _fixed_base_products(scalars, g2: bool) -> int:
     return total * (3 if g2 else 1)
 
 
-def _random_scalars(dev, n: int, seed: int):
-    """n scalars below 2^253 < r made on the card, with 0, 1, 2 and r - 1
-    first and every fourth of the rest 0 (the wires a query leaves out)."""
+def _random_scalars(dev, n: int, seed: int, r: int | None = None):
+    """n scalars below 2^(r.bit_length() - 1) < r made on the card (r
+    BN254's by default: below 2^253), with 0, 1, 2 and r - 1 first and
+    every fourth of the rest 0 (the wires a query leaves out)."""
     import torch
 
     from eigen_zkvm_tpu_torch.curves import bn254
     from eigen_zkvm_tpu_torch.ops import bigint as bi
 
+    r = r or bn254.R
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     S = torch.randint(-2**63, 2**63 - 1, (n, 4), dtype=torch.int64,
                       device=dev, generator=gen)
-    S[:, 3] &= (1 << 61) - 1
+    S[:, 3] &= (1 << (r.bit_length() - 1 - 192)) - 1
     S[4::4] = 0
-    S[:4] = bi.to_tensor([0, 1, 2, bn254.R - 1], dev)
+    S[:4] = bi.to_tensor([0, 1, 2, r - 1], dev)
     return S
 
 
@@ -1674,6 +1719,184 @@ def _check_guests_kernels(dev, rng, width: int) -> dict:
     return {kernels.NTT.name: [ntt_case], kernels.POSEIDON.name: [pos_case]}
 
 
+def _bls(dev) -> tuple:
+    """Phase 14: bench_groth16's synthetic circuit over BLS12-381's r at
+    phase 5's shape through groth16_setup_inplace, groth16_prove_inplace
+    and groth16_verify_inplace("bls12381", ...), the kernels' counts set
+    to 0 before setup and read after verify; then the verify of a changed
+    public.  (numbers, the circuit, the proving key)"""
+    from eigen_zkvm_tpu_torch import bench_groth16 as bg
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.curves import bls12_381
+    from eigen_zkvm_tpu_torch.groth16 import api
+    from eigen_zkvm_tpu_torch.utils.profiler import Prof
+
+    import torch
+
+    t0 = time.perf_counter()
+    circ = bg.synthetic(G16_CONSTRAINTS, 2, G16_SEED, prime=bls12_381.R)
+    circuit_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    setup_prof = Prof("groth16.setup", dev, on=True)
+    t0 = time.perf_counter()
+    pk, vk = api.groth16_setup_inplace("bls12381", circ,
+                                       rng=bg.seeded(G16_SEED), device=dev,
+                                       prof=setup_prof)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prof = Prof("groth16.prove", dev, on=True)
+    proof, pubs = api.groth16_prove_inplace(
+        "bls12381", circ, pk, rng=bg.seeded(G16_SEED + 1), prof=prof)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ok = api.groth16_verify_inplace("bls12381", vk, proof, pubs)
+    t3 = time.perf_counter()
+    launches = kernels.counts()
+    changed = [(pubs[0] + 1) % bls12_381.R] + list(pubs[1:])
+    rejected = not api.groth16_verify_inplace("bls12381", vk, proof, changed)
+    t4 = time.perf_counter()
+    text = api.proof_to_json(proof, "bls12381").encode()
+    return dict(circuit_s=circuit_s, setup_s=t1 - t0, prove_s=t2 - t1,
+                verify_s=t3 - t2, changed_verify_s=t4 - t3,
+                setup_stages=setup_prof.stages, stages=prof.stages,
+                verified=ok, tampered_rejected=rejected, launches=launches,
+                peak_bytes=torch.cuda.max_memory_allocated(dev),
+                domain=pk.domain_size, n_vars=circ.n_vars,
+                proof_sha256=hashlib.sha256(text).hexdigest()), circ, pk
+
+
+def _check_bls_kernels(dev, rng, circ, pk) -> dict:
+    """Phase 14's holds, after its counts are read: the four Groth16
+    kernels at BLS12-381 against their plain versions, exactly.  K1 on the
+    prove's own A (G1) and B2 (G2) inputs against ec.msm_stages_plain, and
+    at BLS_CHECK_N points with phase 3's edge cases (infinity points, a
+    duplicated point, scalars 0, 1 and r - 1, a hot bucket, digits at
+    +2^(c-1) and 2^(c-1) + 1 with carries, bit 254 set) against the
+    double-and-add ec.msm_plain; K2 at setup's lane counts (0, 1, 2 and
+    r - 1 first, a quarter zero; the G2 batch checked on one lane in 8, G1
+    on one in 32); K3 forward, inverse and the coset round trip at the
+    phase's domain, its product by a constant and the quotient; K4 on the
+    prove's rows.  {kernel name: cases}; the first case of each is the one
+    the kernels' line reports."""
+    import random
+
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.curves import bls12_381
+    from eigen_zkvm_tpu_torch.groth16 import groth16 as g16
+    from eigen_zkvm_tpu_torch.ops import bigint as bi
+    from eigen_zkvm_tpu_torch.ops import ec, fr_ntt, r1cs
+
+    R, F = bls12_381.R, bi.FR_BLS
+    G1, G2 = ec.G1_BLS, ec.G2_BLS
+    prng = random.Random(int(rng.integers(1 << 30)))
+
+    def pt_bytes(g):   # bytes of one affine point
+        return 16 * g.field.words * g.deg
+
+    wit = bi.to_tensor([int(v) % R for v in circ.w], dev)
+    k1_cases = []
+    for g, label, pts in ((G1, "A", pk.a_query), (G2, "B2", pk.b2_query)):
+        n = pts.shape[0]
+        k1_cases.append(_hold(
+            f"msm {g} {label} query, the prove's inputs: n={n}, "
+            f"c={ec.window_bits(n)} (plain stages)",
+            lambda: ec.msm(g, pts, wit),
+            lambda: ec.msm_stages_plain(g, pts, wit), 3, 0,
+            n * (32 + pt_bytes(g)) + pt_bytes(g),
+            _msm_products(pts, wit, g.deg == 2, 255) * IMAD_BLS_FQ))
+    del wit
+
+    n = BLS_CHECK_N
+    c = ec.window_bits(n)
+    half, W = 1 << (c - 1), ec.n_windows(c, 255)
+    for g in (G1, G2):
+        gen = ec.generator(g)
+        pts = ec.scalar_mul_batch(g, gen, bi.to_tensor(
+            [prng.randrange(1, R) for _ in range(n)], dev))
+        pts[5] = 0
+        pts[100:103] = 0
+        pts[9] = pts[8]
+        ks = [prng.randrange(R) for _ in range(n)]
+        ks[0], ks[1], ks[2] = 0, 1, R - 1
+        ks[3] = sum(half << (c * w) for w in range(W - 1)) % (1 << 254)
+        ks[4] = sum((half + 1) << (c * w) for w in range(W - 1)) % (1 << 254)
+        ks[6] = (1 << 254) | (1 << 253)
+        ks[7] = (1 << 254) + prng.randrange(R - (1 << 254))
+        for i in range(10, n // 2):
+            ks[i] = i & 1
+        S = bi.to_tensor(ks, dev)
+        k1_cases.append(_hold(
+            f"msm {g} n={n} edge cases (double-and-add)",
+            lambda: ec.msm(g, pts, S), lambda: ec.msm_plain(g, pts, S), 5, 0,
+            n * (32 + pt_bytes(g)) + pt_bytes(g),
+            _msm_products(pts, S, g.deg == 2, 255) * IMAD_BLS_FQ))
+        del pts, S
+
+    n1 = 3 + 2 * pk.n_vars + pk.l_query.shape[0] + pk.n_public + 1 \
+        + pk.h_query.shape[0]
+    n2 = 3 + pk.n_vars
+    k2_cases = []
+    for g, n, step in ((G2, n2, 8), (G1, n1, 32)):
+        S = _random_scalars(dev, n, n, R)
+        gen = ec.generator(g)
+        rows = slice(0, n, step)
+        k2_cases.append(_hold(
+            f"ec_batch {g} {n} lanes (setup's count), plain on one lane in "
+            f"{step}", lambda: ec.scalar_mul_batch(g, gen, S),
+            lambda: ec.scalar_mul_batch_plain(g, gen, S[rows]), 2, 0,
+            n * 32 + n * pt_bytes(g),
+            _fixed_base_products(S, g.deg == 2) * IMAD_BLS_FQ, rows=rows))
+        del S
+
+    m = pk.domain_size
+    log_m = m.bit_length() - 1
+    x = bi.mont_ints(F, [prng.randrange(R) for _ in range(m)], dev)
+    prods = (m // 2) * log_m * IMAD_BN254
+    k = fr_ntt.mont_const(fr_ntt.z_coset_inv(m, F), dev, F)
+    k3_cases = [
+        _hold(f"fr_ntt Fr381 2^{log_m}",
+              lambda: fr_ntt.ntt(x, log_m, field=F),
+              lambda: fr_ntt.ntt_plain(x, log_m, field=F), 10, 1, 64 * m,
+              prods),
+        _hold(f"fr_ntt Fr381 inverse 2^{log_m}",
+              lambda: fr_ntt.ntt(x, log_m, inverse=True, field=F),
+              lambda: fr_ntt.ntt_plain(x, log_m, inverse=True, field=F), 10,
+              1, 64 * m, prods),
+        _hold(f"fr Fr381 coset round trip 2^{log_m} (to_coset, from_coset)",
+              lambda: fr_ntt.from_coset(fr_ntt.to_coset(x, log_m, field=F),
+                                        log_m, field=F),
+              lambda: fr_ntt.from_coset_plain(
+                  fr_ntt.to_coset_plain(x, log_m, field=F), log_m, field=F),
+              10, 1, 64 * m, 3 * prods + 2 * m * IMAD_BN254),
+        _hold(f"fr Fr381 mul 2^{log_m} by a constant",
+              lambda: fr_ntt.mul(x, k, field=F),
+              lambda: fr_ntt.mul_plain(x, k, field=F), 10, 1, 2 * 32 * m,
+              m * IMAD_BN254),
+        _hold(f"fr Fr381 quotient 2^{log_m}",
+              lambda: fr_ntt.quotient(x, x, x, k, field=F),
+              lambda: fr_ntt.quotient_plain(x, x, x, k, field=F), 10, 1,
+              4 * 32 * m, 2 * m * IMAD_BN254)]
+    del x
+
+    rows = g16.r1cs_rows(circ.constraints, dev, F)
+    wit = fr_ntt.to_mont(bi.to_tensor([int(v) % R for v in circ.w], dev),
+                         field=F)
+    n_pub = pk.n_public + 1
+    k4_cases = [_hold(
+        f"r1cs Fr381 the prove's A, B, C: 3 x {rows.nc} rows, {rows.nnz} "
+        f"nonzeros ({3 * rows.nc - rows.n_short} rows on a warp), "
+        f"{rows.coefs.shape[0]} coefficients, domain {m}",
+        lambda: r1cs.evaluate(rows, wit, m, n_pub),
+        lambda: r1cs.evaluate_plain(rows, wit, m, n_pub), 20, 1,
+        *_r1cs_work(rows, wit, m))]
+    return {kernels.MSM_BLS.name: k1_cases,
+            kernels.EC_BATCH_BLS.name: k2_cases,
+            kernels.FR_NTT_BLS.name: k3_cases,
+            kernels.R1CS_BLS.name: k4_cases}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     os.environ.setdefault("EIGEN_ZKVM_SYNC", "1")
@@ -1709,19 +1932,21 @@ def main() -> int:
     report = {"card": card, "device": describe(dev),
               "torch": torch.__version__, "cuda": torch.version.cuda}
 
-    # 2. build
+    # 2. build: one nvcc job a source, all started together; each job's
+    # seconds (to its end) and ptxas report, slowest first, then the total
     info = kernels.build(force=True)
     kernels.library()
     report["build_s"] = info["seconds"]
+    report["build_jobs"] = [{k: j[k] for k in ("source", "seconds")}
+                            for j in info["jobs"]]
+    for j in info["jobs"]:
+        print(f"  nvcc {j['source']}: {j['seconds']:.2f} s", flush=True)
+        for line in j["ptxas"]:
+            print(f"    ptxas: {line}")
     print(f"build: {info['seconds']:.2f} s (nvcc, sm_90a, "
-          f"{len(info['compiled'])} sources)")
-    entry = ""
-    for line in info["log"].splitlines():
-        text = line.split("info    :")[-1].strip()
-        if "Compiling entry function" in text:
-            entry = text.split("'")[1] if "'" in text else text
-        elif "registers" in text or "spill" in text:
-            print(f"  ptxas: {entry[:72]}: {text}")
+          f"{len(info['compiled'])} sources; the slowest job "
+          f"{info['jobs'][0]['source']} {info['jobs'][0]['seconds']:.2f} s)",
+          flush=True)
 
     # 3. the field primitives against Python integers, the measured IMAD
     # rate, the kernels against their plain versions
@@ -2117,13 +2342,69 @@ def main() -> int:
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
 
+    # 14. BLS12-381 Groth16: the field row, the prove, the kernels' holds
+    t0 = time.perf_counter()
+    print("bls: BLS12-381 Groth16 on the card (its Fq and Fq2 in "
+          "csrc/bn254.cuh, K1-K4 at its fields):", flush=True)
+    bad = bn254_check.failures(dev, fields=("Fq381",))
+    report["bls_check_failures"] = bad
+    print(f"  field primitives (csrc/bn254.cuh row 3: Fq381, its Fq2) on "
+          f"edge and random operands: {len(bad)} mismatches "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if bad:
+        return _fail("a BLS12-381 device field primitive disagrees with "
+                     "Python ints: " + "; ".join(bad[:4]))
+    try:
+        b14, circ, pk = _bls(dev)
+    except (RuntimeError, AssertionError, ValueError) as e:
+        return _fail(f"the BLS12-381 Groth16 phase failed: {e!r}")
+    report["bls"] = b14
+    print(f"  groth16 BLS12-381: {G16_CONSTRAINTS} constraints, "
+          f"{b14['n_vars']} wires, domain 2^{b14['domain'].bit_length() - 1}"
+          f"; circuit {b14['circuit_s']:.3f} s, setup {b14['setup_s']:.3f} "
+          f"s, prove {b14['prove_s']:.3f} s, verify {b14['verify_s']:.3f} s "
+          f"({b14['verified']}), a changed public rejected "
+          f"{b14['tampered_rejected']} ({b14['changed_verify_s']:.3f} s); "
+          f"peak device memory {b14['peak_bytes'] / 2**30:.3f} GiB; "
+          f"launches {b14['launches']}", flush=True)
+    for stage, sec in b14["setup_stages"] + b14["stages"]:
+        print(f"    {stage}: {sec:.3f} s")
+    print(f"  proof sha256 {b14['proof_sha256']}; equal to the host "
+          f"engine's: {b14['proof_sha256'] == BLS_GROTH16_HOST_SHA256}",
+          flush=True)
+    bls_kernels = (kernels.MSM_BLS, kernels.EC_BATCH_BLS, kernels.FR_NTT_BLS,
+                   kernels.R1CS_BLS)
+    for k in bls_kernels:
+        launches[k.name] = b14["launches"][k.name]
+    if not (b14["verified"] and b14["tampered_rejected"]):
+        return _fail("the BLS12-381 Groth16 proof does not verify, or a "
+                     "changed public verifies")
+    if any(launches[k.name] == 0 for k in bls_kernels):
+        return _fail(f"a BLS12-381 kernel never launched: {b14['launches']}")
+    if b14["proof_sha256"] != BLS_GROTH16_HOST_SHA256:
+        return _fail("the port's BLS12-381 Groth16 proof differs from the "
+                     "host engine's")
+    t1 = time.perf_counter()
+    cases.update(_check_bls_kernels(dev, rng, circ, pk))
+    del circ, pk
+    report["bls_holds_s"] = time.perf_counter() - t1
+    report["bls_s"] = time.perf_counter() - t0
+    print(f"bls: {report['bls_s']:.1f} s (the holds "
+          f"{report['bls_holds_s']:.1f} s)", flush=True)
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks
     if any(c["err"] != 0.0 for c in checks):
         return _fail("a kernel disagrees with its plain version at the "
                      "zkVM path's, the big-field proves', the recursion "
-                     "layers', the wrap's or the compiled circuit's shapes")
+                     "layers', the wrap's, the compiled circuit's or the "
+                     "BLS12-381 phase's shapes")
 
     report["smoke_s"] = time.perf_counter() - t_start
     print(f"smoke: {report['smoke_s']:.1f} s, kernel build included")

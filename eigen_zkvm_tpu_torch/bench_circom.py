@@ -75,8 +75,8 @@ LAYER_OPTIONS = {
 # the layers of the recursion chain whose verifiers chip_smoke.py renders
 RENDERED_LAYERS = ("c12 0", "recursive1 0", "aggregation", "final")
 # the kernels the two routes run
-SOURCES = ("msm.cu", "ec_batch.cu", "fr_ntt.cu", "r1cs.cu", "ntt.cu",
-           "poseidon_gl.cu")
+SOURCES = ("msm.cu", "msm_g2.cu", "msm_g2_sums.cu", "ec_batch.cu",
+           "fr_ntt.cu", "r1cs.cu", "ntt.cu", "poseidon_gl.cu")
 
 
 def source(path: str, n: int | None = None) -> str:

@@ -1,6 +1,7 @@
 """The zkVM chain end to end on one CUDA device: chunks to Groth16.
 
-    python -m eigen_zkvm_tpu_torch.bench_e2e --chunks 2 --queries 4 --force 18
+    python -m eigen_zkvm_tpu_torch.bench_e2e --chunks 2 --queries 4 \\
+        --force 18 [--curve bls12381]
 
 The port's counterpart of scripts/zkvm_e2e.py, its executable
 specification, with the same stages and the same JSON keys:
@@ -15,14 +16,19 @@ specification, with the same stages and the same JSON keys:
                publics must be the super-chunk's;
   final        `final_layer`: the aggregated proof's verifier circuit
                (compressor12_setup with verkey_input) proved under the
-               BN128 transcript and 16-ary Poseidon-over-Fr trees
-               (`final_struct`), then verified on the host;
-  wrap         `snark_wrap`: the BN254 circuit that verifies the final
-               proof (recursion/stark_verifier_circuit_bn.build_final_main,
-               one public: sha256(proverAddr || publics) mod r), checked,
-               then a Groth16 setup, prove and verify (groth16/groth16.py)
-               on the card, and the verify of a changed public, which must
-               be False.
+               snark curve's transcript and 16-ary Poseidon-over-Fr trees
+               (`final_struct`: BN128, or BLS12381 with --curve bls12381),
+               then verified on the host;
+  wrap         `snark_wrap`: the circuit over the snark curve's r that
+               verifies the final proof
+               (recursion/stark_verifier_circuit_bn.build_final_main, one
+               public: sha256(proverAddr || publics) mod r), checked, then
+               a Groth16 setup, prove and verify (groth16/groth16.py) on
+               the card at that curve, and the verify of a changed public,
+               which must be False.
+--curve bls12381 is the simple_bls.sh branch of the JAX package's
+scripts/full_chain_demo.py (:121-174): the final layer under the
+BLS12381 transcript and trees, its BLS12-381 Groth16 wrap.
 
 Beside zkvm_e2e.py's keys, each stage's `Prof` split, its peak device
 memory and the kernels' launches (counts set to 0 just before the stage,
@@ -43,13 +49,16 @@ import sys
 import time
 from dataclasses import dataclass
 
-from .curves import bn254
+from .curves import bls12_381, bn254
 from .stark.types import StarkStruct, Step
 from .utils.profiler import Prof
 
 # The Groth16 draws of the wrap: setup from bench_groth16.seeded(G16_SEED),
 # prove from seeded(G16_SEED + 1).
 G16_SEED = 1
+# The snark curve's Groth16 name -> (its final layer's verificationHashType,
+# its curve module)
+SNARK_CURVES = {"bn128": ("BN128", bn254), "bls12381": ("BLS12381", bls12_381)}
 
 
 def final_struct(n_bits: int, n_queries: int, hash_type: str = "BN128"
@@ -66,14 +75,15 @@ def final_struct(n_bits: int, n_queries: int, hash_type: str = "BN128"
 
 
 def final_layer(agg_zkin: dict, agg_setup, agg_ss, engine=None,
-                prof: Prof | None = None):
-    """The final BN128 eSTARK of an aggregated (or any GL) proof
-    (scripts/zkvm_e2e.py:177-198): its verifier circuit with the constant
-    root as an input, packed into the compressor PIL and proved on
-    `engine` (None: the current CUDA device, raising without one) under
-    the BN128 transcript and trees at the inner proof's query count;
-    self-verified on the host.  Returns (zkin dict, StarkSetup, struct,
-    PlonkSetup)."""
+                prof: Prof | None = None, curve: str = "bn128"):
+    """The final big-field eSTARK of an aggregated (or any GL) proof
+    (scripts/zkvm_e2e.py:177-198; full_chain_demo.py:121-146 for
+    BLS12-381): its verifier circuit with the constant root as an input,
+    packed into the compressor PIL and proved on `engine` (None: the
+    current CUDA device, raising without one) under the snark `curve`'s
+    transcript and trees (BN128 or BLS12381) at the inner proof's query
+    count; self-verified on the host.  Returns (zkin dict, StarkSetup,
+    struct, PlonkSetup)."""
     from .recursion.compressor12 import (StarkOption, compressor12_setup,
                                          exec_witness)
     from .stark.engine import Engine
@@ -89,7 +99,8 @@ def final_layer(agg_zkin: dict, agg_setup, agg_ss, engine=None,
     cm_pols = exec_witness(circuit, psetup)
     if prof:
         prof.tick("exec_witness")
-    ss = final_struct(psetup.n_bits, agg_ss.nQueries)
+    hash_type = SNARK_CURVES[curve][0]
+    ss = final_struct(psetup.n_bits, agg_ss.nQueries, hash_type)
     setup = StarkSetup(psetup.const_pols, psetup.pil, ss, engine, prof=prof)
     proof = stark_gen(cm_pols, psetup.const_pols, setup.const_tree,
                       setup.starkinfo, setup.program, ss, engine=engine,
@@ -101,7 +112,7 @@ def final_layer(agg_zkin: dict, agg_setup, agg_ss, engine=None,
     if not ok:
         raise RuntimeError("the final layer's proof failed self-"
                            "verification")
-    return stark_proof_to_dict(proof, "BN128"), setup, ss, psetup
+    return stark_proof_to_dict(proof, hash_type), setup, ss, psetup
 
 
 @dataclass
@@ -121,22 +132,26 @@ class Wrap:
 
 
 def snark_wrap(zkin: dict, setup, ss, device=None, rng_setup=None,
-               rng_prove=None, prof: Prof | None = None) -> Wrap:
-    """The Groth16 wrap of a BN128 final proof (scripts/zkvm_e2e.py:
-    200-220): build_final_main over the zkin, check(), then Groth16 setup,
-    prove and verify on `device` (None: the current CUDA device, raising
-    without one; "cpu" runs the kernels' plain versions), and the verify of
-    the public plus one.  `rng_setup` / `rng_prove` are the draws' sources
-    (None: `secrets`)."""
+               rng_prove=None, prof: Prof | None = None,
+               curve: str = "bn128") -> Wrap:
+    """The Groth16 wrap of a final proof under `curve`'s transcript
+    (scripts/zkvm_e2e.py:200-220, full_chain_demo.py:148-165):
+    build_final_main over the zkin with that curve's Poseidon and r,
+    check(), then Groth16 setup, prove and verify at that curve on `device`
+    (None: the current CUDA device, raising without one; "cpu" runs the
+    kernels' plain versions), and the verify of the public plus one.
+    `rng_setup` / `rng_prove` are the draws' sources (None: `secrets`)."""
     from . import kernels
     from .groth16 import groth16 as g16
-    from .hash import poseidon_bn128
+    from .hash import poseidon_bls12381, poseidon_bn128
     from .recursion.stark_verifier_circuit_bn import build_final_main
 
     dev = g16.resolve_device(device)
     prof = prof or Prof("snark_wrap", dev)
+    r = SNARK_CURVES[curve][1].R
+    pos = poseidon_bn128 if curve == "bn128" else poseidon_bls12381
     b = build_final_main(zkin, setup.starkinfo, setup.program, ss,
-                         setup.const_root, poseidon_bn128, curve_r=bn254.R)
+                         setup.const_root, pos, curve_r=r)
     prof.tick("build_final_main")
     if not b.check():
         raise RuntimeError("the final circuit's witness does not satisfy "
@@ -144,14 +159,14 @@ def snark_wrap(zkin: dict, setup, ss, device=None, rng_setup=None,
     prof.tick("check")
     counts = [kernels.counts()]
     pk, vk = g16.setup(b.constraints, b.n_vars, b.n_publics, rng=rng_setup,
-                       device=dev, prof=prof)
+                       device=dev, prof=prof, curve=curve)
     counts.append(kernels.counts())
     proof, publics = g16.prove(pk, b.constraints, b.w, rng=rng_prove,
                                prof=prof)
     counts.append(kernels.counts())
     ok = g16.verify(vk, proof, publics)
     prof.tick("verify")
-    rejected = not g16.verify(vk, proof, [(publics[0] + 1) % bn254.R])
+    rejected = not g16.verify(vk, proof, [(publics[0] + 1) % r])
     prof.tick("verify (changed public)")
     launches = {step: {k: after[k] - before[k] for k in after}
                 for step, before, after in (("setup", *counts[:2]),
@@ -191,13 +206,14 @@ def wrap_digests(zkin: dict, wrap: Wrap) -> dict:
     return {
         "final zkin": zkin_sha256(zkin),
         "circuit": circuit_sha256(wrap.circuit),
-        "proof": hashlib.sha256(
-            api.proof_to_json(wrap.proof, "bn128").encode()).hexdigest(),
+        "proof": hashlib.sha256(api.proof_to_json(
+            wrap.proof, wrap.pk.curve_name).encode()).hexdigest(),
         "verifier.sol": hashlib.sha256(
             api.generate_verifier_from_vk(wrap.vk).encode()).hexdigest()}
 
 
-def run_final_and_wrap(agg: dict, engine, dev, on_layer=None) -> tuple:
+def run_final_and_wrap(agg: dict, engine, dev, on_layer=None,
+                       curve: str = "bn128") -> tuple:
     """The chain's last two stages over bench_recursion.run_layers' output
     `agg` (its "aggregation" zkin and "aggregation_setup"), each under
     bench_recursion.run_layer (its Prof split, peak device memory and
@@ -209,15 +225,16 @@ def run_final_and_wrap(agg: dict, engine, dev, on_layer=None) -> tuple:
     whether the public is `publics_hash`, the launches by step and
     `wrap_digests` (and its seconds).  `on_layer("final", (StarkSetup,
     struct, PlonkSetup))` is called after the final layer's record, as
-    bench_recursion.run_layers calls it.  Returns (final record, wrap
-    record, final zkin, Wrap)."""
+    bench_recursion.run_layers calls it.  `curve`: the snark curve
+    (`SNARK_CURVES`).  Returns (final record, wrap record, final zkin,
+    Wrap)."""
     from . import bench_groth16, bench_recursion
 
     agg_setup, agg_ss, _ = agg["aggregation_setup"]
     (zkin4, setup4, ss4, ps4), final = bench_recursion.run_layer(
         "final", engine, lambda prof: final_layer(
             agg["aggregation"], agg_setup, agg_ss, engine=engine,
-            prof=prof))
+            prof=prof, curve=curve))
     sn = setup4.starkinfo.map_sectionsN
     final.update(n_bits=ps4.n_bits, n_used=ps4.n_used,
                  n_const=ps4.pil.nConstants,
@@ -237,7 +254,8 @@ def run_final_and_wrap(agg: dict, engine, dev, on_layer=None) -> tuple:
         "wrap", engine, lambda prof: snark_wrap(
             zkin4, setup4, ss4, device=dev,
             rng_setup=bench_groth16.seeded(G16_SEED),
-            rng_prove=bench_groth16.seeded(G16_SEED + 1), prof=prof))
+            rng_prove=bench_groth16.seeded(G16_SEED + 1), prof=prof,
+            curve=curve))
     t0 = time.perf_counter()
     digests = wrap_digests(zkin4, wrap)
     rec.update(digests_s=time.perf_counter() - t0, digests=digests,
@@ -245,7 +263,8 @@ def run_final_and_wrap(agg: dict, engine, dev, on_layer=None) -> tuple:
                wires=wrap.circuit.n_vars, domain=wrap.pk.domain_size,
                verified=wrap.verified,
                tampered_rejected=wrap.tampered_rejected,
-               publics_hash_ok=wrap.publics == [publics_hash(zkin4)],
+               publics_hash_ok=wrap.publics == [publics_hash(
+                   zkin4, SNARK_CURVES[curve][1].R)],
                by_step=wrap.launches)
     print(f"  wrap: {rec['constraints']} constraints, {rec['wires']} wires, "
           f"domain 2^{rec['domain'].bit_length() - 1}, "
@@ -269,6 +288,8 @@ def main(argv=None) -> int:
                     help="queries of every layer (zkvm_e2e.py's default)")
     ap.add_argument("--force", type=int, default=18,
                     help="log2 rows of recursive1 and the aggregation")
+    ap.add_argument("--curve", default="bn128", choices=sorted(SNARK_CURVES),
+                    help="the snark curve of the final layer and the wrap")
     ap.add_argument("-o", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     if args.chunks < 2:
@@ -282,7 +303,7 @@ def main(argv=None) -> int:
 
     dev = cuda_device(0)
     engine = Engine(dev)
-    res: dict = {"metric": "zkvm_e2e_chain", "unit": "s",
+    res: dict = {"metric": "zkvm_e2e_chain", "unit": "s", "curve": args.curve,
                  "chunk_rows": 1 << args.nbits, "n_queries": args.queries,
                  "force_n_bits": args.force, "card": card_line()}
     print(f"card: {res['card']}", flush=True)
@@ -333,7 +354,8 @@ def main(argv=None) -> int:
         bench_recursion.super_publics_hold(guest, machine, out["aggregation"],
                                            0, K - 1)
     print("final layer and wrap:", flush=True)
-    final, rec, zkin4, wrap = run_final_and_wrap(out, engine, dev)
+    final, rec, zkin4, wrap = run_final_and_wrap(out, engine, dev,
+                                                 curve=args.curve)
     del out
     res["final"] = final
     res["final_bn128_s"] = final["wall_s"]

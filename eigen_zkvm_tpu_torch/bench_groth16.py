@@ -1,9 +1,11 @@
-"""A synthetic BN254 R1CS and a warm-prove timer for the port's Groth16.
+"""A synthetic R1CS and a warm-prove timer for the port's Groth16.
 
     python -m eigen_zkvm_tpu_torch.bench_groth16 --constraints 2097149 \\
-        --runs 2 --seed 1
+        --runs 2 --seed 1 [--curve BLS12381]
 
-The circuit (`synthetic`) is deterministic from its seed (numpy): wire 0 is
+The circuit (`synthetic`) is deterministic from its seed (numpy), over
+BN254's r unless given another `prime` (BLS12-381's r for `--curve
+BLS12381`): wire 0 is
 the one-wire, wires 1..n_publics the public inputs, then a few random
 inputs; every constraint adds one wire.  Half the constraints are
 booleanity checks b * b = b of a new wire holding 0 or 1, as a verifier
@@ -43,19 +45,21 @@ N_RANDOM_INPUTS = 8
 
 
 class Circuit:
-    """What the Groth16 entry points read of a circuit."""
+    """What the Groth16 entry points read of a circuit: its field is P."""
 
-    def __init__(self, constraints, n_vars, n_publics, w):
+    def __init__(self, constraints, n_vars, n_publics, w, prime: int = R):
         self.constraints = constraints
         self.n_vars = n_vars
         self.n_publics = n_publics
         self.w = w
-        self.P = R
+        self.P = prime
 
 
-def synthetic(n_constraints: int, n_publics: int = 2, seed: int = 0
-              ) -> Circuit:
-    """The synthetic circuit of `n_constraints` rows (module docstring)."""
+def synthetic(n_constraints: int, n_publics: int = 2, seed: int = 0,
+              prime: int = R) -> Circuit:
+    """The synthetic circuit of `n_constraints` rows over F_prime (module
+    docstring)."""
+    R = prime
     rng = np.random.default_rng(seed)
     prng = random.Random(seed)
     pool = [1, R - 1, 2] + [prng.randrange(R) for _ in range(5)]
@@ -85,7 +89,7 @@ def synthetic(n_constraints: int, n_publics: int = 2, seed: int = 0
         w.append(out)
         sides[2][new] = 1
         constraints.append(tuple(sides))
-    return Circuit(constraints, len(w), n_publics, w)
+    return Circuit(constraints, len(w), n_publics, w, prime)
 
 
 # Row lengths of `long_rows`: around the kernel's thread/warp threshold
@@ -126,7 +130,7 @@ def long_rows(n_rows: int, seed: int = 0) -> Circuit:
 
 def check(circuit: Circuit) -> bool:
     """Whether the witness satisfies every constraint."""
-    w = circuit.w
+    w, R = circuit.w, circuit.P
     for A, B, C in circuit.constraints:
         a = sum(w[s] * c for s, c in A.items())
         b = sum(w[s] * c for s, c in B.items())
@@ -150,6 +154,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--curve", default="BN128",
+                    help="BN128 (BN254) or BLS12381: the synthetic circuit "
+                         "over that curve's r, proved on that curve")
     ap.add_argument("--trace", action="store_true",
                     help="split the A and B2 MSMs by stage (needs CUDA)")
     args = ap.parse_args(argv)
@@ -159,22 +166,26 @@ def main(argv=None) -> int:
     os.environ.setdefault("EIGEN_ZKVM_SYNC", "1")
     from . import kernels
     from .groth16 import api
+    from .ops import ec
     from .utils.devices import card_line, cuda_device, describe
     from .utils.profiler import Prof
 
     dev = cuda_device() if args.device is None else torch.device(args.device)
-    report = {"constraints": args.constraints, "seed": args.seed}
+    cname = api._curve(args.curve)
+    prime = ec.CURVES[cname].fr.modulus
+    report = {"constraints": args.constraints, "seed": args.seed,
+              "curve": cname}
     if dev.type == "cuda":
         report["card"] = card_line()
         report["device"] = describe(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    circ = synthetic(args.constraints, args.publics, args.seed)
+    circ = synthetic(args.constraints, args.publics, args.seed, prime)
     report["circuit_s"] = time.perf_counter() - t0
     report["n_vars"] = circ.n_vars
     prof = Prof("groth16.setup", dev, on=True)
     t0 = time.perf_counter()
-    pk, vk = api.groth16_setup_inplace("bn128", circ, rng=seeded(args.seed),
+    pk, vk = api.groth16_setup_inplace(cname, circ, rng=seeded(args.seed),
                                        device=dev, prof=prof)
     _sync(dev)
     report["setup_s"] = time.perf_counter() - t0
@@ -186,12 +197,12 @@ def main(argv=None) -> int:
         prof = Prof("groth16.prove", dev, on=True)
         t0 = time.perf_counter()
         proof, pubs = api.groth16_prove_inplace(
-            "bn128", circ, pk, rng=seeded(args.seed + 1), prof=prof)
+            cname, circ, pk, rng=seeded(args.seed + 1), prof=prof)
         _sync(dev)
         wall = time.perf_counter() - t0
-        text = api.proof_to_json(proof, "bn128")
+        text = api.proof_to_json(proof, cname)
         t1 = time.perf_counter()
-        ok = api.groth16_verify_inplace("bn128", vk, proof, pubs)
+        ok = api.groth16_verify_inplace(cname, vk, proof, pubs)
         runs.append({"prove_s": wall, "verify_s": time.perf_counter() - t1,
                      "verified": ok, "stages": prof.stages,
                      "launches": kernels.counts(),
@@ -215,10 +226,10 @@ def trace_msms(circ: Circuit, pk) -> dict:
     from .ops import ec
 
     dev = pk.a_query.device
-    wit = bi.to_tensor([int(v) % R for v in circ.w], dev)
+    wit = bi.to_tensor([int(v) % circ.P for v in circ.w], dev)
+    g1, g2 = ec.GROUPS[pk.curve_name]
     out = {}
-    for g, label, pts in ((ec.G1, "A", pk.a_query),
-                          (ec.G2, "B2", pk.b2_query)):
+    for g, label, pts in ((g1, "A", pk.a_query), (g2, "B2", pk.b2_query)):
         for _ in range(2):
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()

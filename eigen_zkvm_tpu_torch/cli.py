@@ -21,8 +21,8 @@ differences:
   - groth16_setup and groth16_prove take --circuit as a circom .r1cs file,
     not a pickle, and groth16_prove takes --witness (.wtns or a JSON list),
     since the JAX package's pickle carries the witness inside the circuit;
-    groth16's --curve_type BLS12381 raises NotImplementedError (BN254
-    Groth16 only);
+    the .r1cs file's prime must be the --curve_type's r (BN128, the
+    default, or BLS12381);
   - --pk is the port's proving-key file (groth16/api.py, save_pk /
     load_pk), not a pickle;
   - compressor12_setup keeps, beside the .pil.json, `<pil>.setup.pkl`: the
@@ -179,14 +179,16 @@ def _cmd_join_zkin(args) -> int:
     return 0
 
 
-def _load_circuit(path: str):
-    """(constraints, n_vars, n_publics) of a BN254 .r1cs file."""
+def _load_circuit(path: str, curve: str = "bn128"):
+    """(constraints, n_vars, n_publics) of a .r1cs file over `curve`'s r
+    (a groth16/api.py curve name)."""
     from .algebraic.r1cs_file import load_r1cs, r1cs_to_circuit_inputs
-    from .groth16.groth16 import R
+    from .groth16.groth16 import curve_of
 
     r1cs = load_r1cs(path)
-    if r1cs.prime != R:
-        raise ValueError(f"{path}: field {r1cs.prime} is not BN254's Fr")
+    if r1cs.prime != curve_of(curve).fr.modulus:
+        raise ValueError(f"{path}: field {r1cs.prime} is not the {curve} "
+                         f"scalar field")
     if r1cs.custom_gates or r1cs.custom_gates_uses:
         raise ValueError(f"{path}: custom gates are not R1CS constraints")
     constraints, _, n_vars, n_publics = r1cs_to_circuit_inputs(r1cs)
@@ -197,9 +199,10 @@ def _cmd_groth16_setup(args) -> int:
     from .groth16 import groth16 as core
     from .groth16.api import _curve, save_pk, vk_to_json
 
-    _curve(args.curve_type)
-    constraints, n_vars, n_publics = _load_circuit(args.circuit)
-    pk, vk = core.setup(constraints, n_vars, n_publics, device=args.device)
+    cname = _curve(args.curve_type)
+    constraints, n_vars, n_publics = _load_circuit(args.circuit, cname)
+    pk, vk = core.setup(constraints, n_vars, n_publics, device=args.device,
+                        curve=cname)
     save_pk(args.pk, pk)
     with open(args.vk, "w") as f:
         f.write(vk_to_json(vk, to_hex=args.to_hex))
@@ -210,14 +213,14 @@ def _cmd_groth16_setup(args) -> int:
 def _cmd_groth16_prove(args) -> int:
     from .algebraic.witness import load_witness
     from .groth16 import groth16 as core
-    from .groth16.api import (_curve, load_pk, proof_to_json,
+    from .groth16.api import (_curve, _same_curve, load_pk, proof_to_json,
                               publics_to_json)
     from .utils.profiler import Prof
 
     cname = _curve(args.curve_type)
     dev = core.resolve_device(args.device)
     prof = args.prof or Prof("cli.groth16_prove", dev)
-    constraints, n_vars, n_publics = _load_circuit(args.circuit)
+    constraints, n_vars, n_publics = _load_circuit(args.circuit, cname)
     prof.tick("load r1cs")
     witness = load_witness(args.witness)
     if len(witness) != n_vars:
@@ -225,6 +228,7 @@ def _cmd_groth16_prove(args) -> int:
                          f"{n_vars} wires")
     prof.tick("load witness")
     pk = load_pk(args.pk, dev)
+    _same_curve(cname, pk.curve_name)
     if (pk.n_vars, pk.n_public) != (n_vars, n_publics):
         raise ValueError(f"{args.pk} is a key for another circuit")
     prof.tick("load pk")
@@ -239,12 +243,13 @@ def _cmd_groth16_prove(args) -> int:
 
 def _cmd_groth16_verify(args) -> int:
     from .groth16 import groth16 as core
-    from .groth16.api import (_curve, proof_from_json, publics_from_json,
-                              vk_from_json)
+    from .groth16.api import (_curve, _same_curve, proof_from_json,
+                              publics_from_json, vk_from_json)
 
-    _curve(args.curve_type)
+    cname = _curve(args.curve_type)
     with open(args.vk) as f:
         vk = vk_from_json(f.read())
+    _same_curve(cname, vk.curve_name)
     with open(args.proof) as f:
         proof = proof_from_json(f.read())
     with open(args.public_input) as f:

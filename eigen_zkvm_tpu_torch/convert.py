@@ -135,14 +135,16 @@ def plonk_setup_from_jax(psetup) -> PlonkSetup:
 
 
 def groth16_keys_from_jax(pk, vk, device: torch.device | str):
-    """A JAX-package Groth16 key pair (BN254) as the port's, the proving
-    key's queries on `device`.  The points are read as affine ints, by
-    element access (lists, or `native.RawAffine`, whose elements decode to
-    affine tuples), never in the native kernels' limb layout."""
+    """A JAX-package Groth16 key pair (BN254 or BLS12-381, its
+    `curve_name`) as the port's, the proving key's queries on `device`.
+    The points are read as affine ints, by element access (lists, or
+    `native.RawAffine`, whose elements decode to affine tuples), never in
+    the native kernels' limb layout."""
     device = torch.device(device)
+    G1, G2 = ec.GROUPS[pk.curve_name]
 
     def g1(points):
-        return ec.affine_tensor(ec.G1, [points[i] for i in range(len(points))],
+        return ec.affine_tensor(G1, [points[i] for i in range(len(points))],
                                 device)
 
     out_pk = g16.ProvingKey(
@@ -151,7 +153,7 @@ def groth16_keys_from_jax(pk, vk, device: torch.device | str):
         beta2=pk.beta2, delta1=pk.delta1, delta2=pk.delta2,
         a_query=g1(pk.a_query), b1_query=g1(pk.b1_query),
         b2_query=ec.affine_tensor(
-            ec.G2, [pk.b2_query[i] for i in range(len(pk.b2_query))], device),
+            G2, [pk.b2_query[i] for i in range(len(pk.b2_query))], device),
         l_query=g1(pk.l_query), h_query=g1(pk.h_query))
     out_vk = g16.VerifyingKey(
         curve_name=vk.curve_name, alpha1=vk.alpha1, beta2=vk.beta2,

@@ -1,5 +1,7 @@
-// NTT passes and pointwise products over BN254's Fr for Hopper (sm_90a): the
-// quotient H = (A*B - C) / Z of a Groth16 prove.
+// NTT passes and pointwise products over a Groth16 scalar field for Hopper
+// (sm_90a), BN254's Fr or BLS12-381's (bn254.cuh rows 1 and 2, both eight
+// limbs; the `field` argument of each entry): the quotient H = (A*B - C) /
+// Z of a Groth16 prove.
 //
 // Replaces the transforms of eigen_zkvm_tpu/groth16/groth16.py::_witness_h
 // (:315; its Python `_ntt` / `_intt` at :34-72, native/ec_curves.cpp's
@@ -53,7 +55,7 @@
 
 namespace {
 
-using bn254::Fr;
+using bn254::Fp;
 
 constexpr int kMaxBits = 11;    // a tile holds at most 2^11 values: 64 KB
 constexpr int kMaxLogN = 28;
@@ -63,16 +65,20 @@ constexpr int kMinTiles = 512;  // tiles a pass should have, narrowing its tile
 constexpr int kPointwiseThreads = 256;
 
 // One value from device memory: two 16-byte loads
-__device__ __forceinline__ Fr load2(const uint4* __restrict__ p) {
+template <int F>
+__device__ __forceinline__ Fp<F> load2(const uint4* __restrict__ p) {
+  static_assert(bn254::kLimbs<F> == bn254::N, "an Fr value is 8 limbs");
   const uint4 a = __ldg(p);
   const uint4 b = __ldg(p + 1);
-  Fr r;
+  Fp<F> r;
   r.v[0] = a.x, r.v[1] = a.y, r.v[2] = a.z, r.v[3] = a.w;
   r.v[4] = b.x, r.v[5] = b.y, r.v[6] = b.z, r.v[7] = b.w;
   return r;
 }
 
-__device__ __forceinline__ void store2(uint4* __restrict__ p, const Fr& a) {
+template <int F>
+__device__ __forceinline__ void store2(uint4* __restrict__ p,
+                                       const Fp<F>& a) {
   p[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
   p[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
 }
@@ -87,20 +93,24 @@ __device__ __forceinline__ int swizzle(int p) {
   return p ^ ((p >> 5) & 31) ^ ((p >> 10) & 31);
 }
 
-__device__ __forceinline__ Fr tile_load(int p, int plane) {
+template <int F>
+__device__ __forceinline__ Fp<F> tile_load(int p, int plane) {
   const uint32_t* s = smem + swizzle(p);
-  Fr r;
+  Fp<F> r;
 #pragma unroll
   for (int l = 0; l < bn254::N; ++l) r.v[l] = s[l * plane];
   return r;
 }
 
-__device__ __forceinline__ void tile_store(int p, int plane, const Fr& a) {
+template <int F>
+__device__ __forceinline__ void tile_store(int p, int plane,
+                                           const Fp<F>& a) {
   uint32_t* s = smem + swizzle(p);
 #pragma unroll
   for (int l = 0; l < bn254::N; ++l) s[l * plane] = a.v[l];
 }
 
+template <int F>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     pass_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
                 const uint4* __restrict__ tw,
@@ -138,9 +148,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const int j = i & (h - 1);
       const int p0 = ((((i >> s) << (s + 1)) | j) << log_cols) | c;
       const int p1 = p0 + (h << log_cols);
-      const Fr u = tile_load(p0, plane);
-      Fr v = tile_load(p1, plane);
-      if (j != 0) v = bn254::mul(v, load2(stage_tw + 2 * (h + j)));
+      const Fp<F> u = tile_load<F>(p0, plane);
+      Fp<F> v = tile_load<F>(p1, plane);
+      if (j != 0) v = bn254::mul(v, load2<F>(stage_tw + 2 * (h + j)));
       tile_store(p0, plane, bn254::add(u, v));
       tile_store(p1, plane, bn254::sub(u, v));
     }
@@ -157,13 +167,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const long long c = col0 + (t & (cols - 1));
       const long long e = ((c >> lo) * r) << lo;
       if (e == 0 && post == nullptr) continue;
-      Fr v = tile_load(t, plane);
+      Fp<F> v = tile_load<F>(t, plane);
       if (e != 0) {
-        v = bn254::mul(v, load2(tw + 2 * (e & (half_n - 1))));
+        v = bn254::mul(v, load2<F>(tw + 2 * (e & (half_n - 1))));
         if (e >= half_n) v = bn254::neg(v);
       }
       if (post != nullptr)
-        v = bn254::mul(v, load2(post + 2 * (r * width + c)));
+        v = bn254::mul(v, load2<F>(post + 2 * (r * width + c)));
       tile_store(t, plane, v);
     }
     __syncthreads();
@@ -184,39 +194,86 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+template <int F>
 __global__ void __launch_bounds__(kPointwiseThreads)
     mul_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
                int b_step, uint4* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   store2(out + 2 * i,
-         bn254::mul(load2(a + 2 * i), load2(b + 2 * i * b_step)));
+         bn254::mul(load2<F>(a + 2 * i), load2<F>(b + 2 * i * b_step)));
 }
 
+template <int F>
 __global__ void __launch_bounds__(kPointwiseThreads)
     quotient_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
                     const uint4* __restrict__ c, const uint4* __restrict__ k,
                     uint4* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fr ab = bn254::mul(load2(a + 2 * i), load2(b + 2 * i));
-  store2(out + 2 * i, bn254::mul(bn254::sub(ab, load2(c + 2 * i)), load2(k)));
+  const Fp<F> ab = bn254::mul(load2<F>(a + 2 * i), load2<F>(b + 2 * i));
+  store2(out + 2 * i,
+         bn254::mul(bn254::sub(ab, load2<F>(c + 2 * i)), load2<F>(k)));
 }
 
 unsigned blocks_for(long long n) {
   return (unsigned)((n + kPointwiseThreads - 1) / kPointwiseThreads);
 }
 
+
+template <int F>
+int launch_pass(const void* in, void* out, const void* tw,
+                const void* stage_tw, const void* post, int log_n, int lo,
+                int bits, cudaStream_t stream) {
+  // the widest tile of at most 2^11 values that leaves kMinTiles tiles
+  const long long width = 1ll << (log_n - bits);
+  int log_cols = kMaxBits - bits;
+  while (log_cols > 0 &&
+         ((1ll << log_cols) > width || (width >> log_cols) < kMinTiles))
+    --log_cols;
+  const int values = 1 << (bits + log_cols);
+  const int smem = (int)sizeof(Fp<F>) * values;
+  cudaError_t err = cudaFuncSetAttribute(
+      pass_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(Fp<F>) << kMaxBits);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = values / 2 < 32 ? 32
+                      : values / 2 > kThreads ? kThreads : values / 2;
+  pass_kernel<F><<<(unsigned)(width >> log_cols), threads, smem, stream>>>(
+      (const uint4*)in, (uint4*)out, (const uint4*)tw,
+      (const uint4*)stage_tw, (const uint4*)post, log_n, lo, bits, log_cols);
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+int launch_mul(const void* a, const void* b, int b_step, void* out,
+               long long n, cudaStream_t stream) {
+  mul_kernel<F><<<blocks_for(n), kPointwiseThreads, 0, stream>>>(
+      (const uint4*)a, (const uint4*)b, b_step, (uint4*)out, n);
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+int launch_quotient(const void* a, const void* b, const void* c,
+                    const void* k, void* out, long long n,
+                    cudaStream_t stream) {
+  quotient_kernel<F><<<blocks_for(n), kPointwiseThreads, 0, stream>>>(
+      (const uint4*)a, (const uint4*)b, (const uint4*)c, (const uint4*)k,
+      (uint4*)out, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// One pass of a transform of 2^log_n values (see the top of the file): the
-// length-2^bits transforms down the columns of `in` viewed as
-// [2^bits, 2^(log_n - bits)], lo the bits of the passes before.  `tw[j]` =
-// w^j for j < n/2, `stage_tw[h + j]` = w_(2h)^j for h = 2^s, s < min(log_n,
-// 11), both from the transform's root (its inverse for an inverse
-// transform); `post` (nullable, the last pass only) scales the output.
-// `in` and `out` must not overlap; every pointer 16-byte aligned.
-extern "C" int fr_ntt_pass(int device, const void* in, void* out,
+// field: 1 BN254's Fr, 2 BLS12-381's (bn254.cuh rows).  One pass of a
+// transform of 2^log_n values (see the top of the file): the length-2^bits
+// transforms down the columns of `in` viewed as [2^bits, 2^(log_n -
+// bits)], lo the bits of the passes before.  `tw[j]` = w^j for j < n/2,
+// `stage_tw[h + j]` = w_(2h)^j for h = 2^s, s < min(log_n, 11), both from
+// the transform's root (its inverse for an inverse transform); `post`
+// (nullable, the last pass only) scales the output.  `in` and `out` must
+// not overlap; every pointer 16-byte aligned.
+extern "C" int fr_ntt_pass(int device, int field, const void* in, void* out,
                            const void* tw, const void* stage_tw,
                            const void* post, int log_n, int lo, int bits,
                            void* stream) {
@@ -226,48 +283,35 @@ extern "C" int fr_ntt_pass(int device, const void* in, void* out,
       lo < 0 || lo + bits > log_n ||
       (post != nullptr && lo + bits != log_n))
     return (int)cudaErrorInvalidValue;
-  // the widest tile of at most 2^11 values that leaves kMinTiles tiles
-  const long long width = 1ll << (log_n - bits);
-  int log_cols = kMaxBits - bits;
-  while (log_cols > 0 &&
-         ((1ll << log_cols) > width || (width >> log_cols) < kMinTiles))
-    --log_cols;
-  const int values = 1 << (bits + log_cols);
-  const int smem = (int)sizeof(Fr) * values;
-  err = cudaFuncSetAttribute(pass_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sizeof(Fr) << kMaxBits);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = values / 2 < 32 ? 32
-                      : values / 2 > kThreads ? kThreads : values / 2;
-  pass_kernel<<<(unsigned)(width >> log_cols), threads, smem,
-                (cudaStream_t)stream>>>(
-      (const uint4*)in, (uint4*)out, (const uint4*)tw,
-      (const uint4*)stage_tw, (const uint4*)post, log_n, lo, bits, log_cols);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (field == 1)
+    return launch_pass<1>(in, out, tw, stage_tw, post, log_n, lo, bits, s);
+  if (field == 2)
+    return launch_pass<2>(in, out, tw, stage_tw, post, log_n, lo, bits, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // out[i] = a[i] * b[i * b_step] (b_step 0: one value for all)
-extern "C" int fr_mul(int device, const void* a, const void* b, int b_step,
-                      void* out, long long n, void* stream) {
+extern "C" int fr_mul(int device, int field, const void* a, const void* b,
+                      int b_step, void* out, long long n, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (field != 1 && field != 2) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  mul_kernel<<<blocks_for(n), kPointwiseThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)a, (const uint4*)b, b_step, (uint4*)out, n);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return field == 1 ? launch_mul<1>(a, b, b_step, out, n, s)
+                    : launch_mul<2>(a, b, b_step, out, n, s);
 }
 
 // out[i] = (a[i] * b[i] - c[i]) * k[0]
-extern "C" int fr_quotient(int device, const void* a, const void* b,
-                           const void* c, const void* k, void* out,
-                           long long n, void* stream) {
+extern "C" int fr_quotient(int device, int field, const void* a,
+                           const void* b, const void* c, const void* k,
+                           void* out, long long n, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (field != 1 && field != 2) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  quotient_kernel<<<blocks_for(n), kPointwiseThreads, 0,
-                    (cudaStream_t)stream>>>(
-      (const uint4*)a, (const uint4*)b, (const uint4*)c, (const uint4*)k,
-      (uint4*)out, n);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return field == 1 ? launch_quotient<1>(a, b, c, k, out, n, s)
+                    : launch_quotient<2>(a, b, c, k, out, n, s);
 }

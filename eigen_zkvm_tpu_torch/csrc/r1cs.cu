@@ -1,6 +1,7 @@
-// R1CS evaluation over BN254's Fr for Hopper (sm_90a): the three matrices
-// A, B, C of a Groth16 circuit times the witness, in one launch, written
-// straight into the [3, m, 4] buffer the quotient transforms read.
+// R1CS evaluation over a Groth16 scalar field for Hopper (sm_90a), BN254's
+// Fr or BLS12-381's (bn254.cuh rows 1 and 2, the `field` argument): the
+// three matrices A, B, C of a circuit times the witness, in one launch,
+// written straight into the [3, m, 4] buffer the quotient transforms read.
 //
 // Replaces the sparse evaluation of eigen_zkvm_tpu/groth16/groth16.py
 // ::_witness_h (:315, over the CSR of `_r1cs_csr` :283), which runs
@@ -44,42 +45,46 @@
 
 namespace {
 
-using bn254::Fr;
+using bn254::Fp;
 
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr int kPlusOne = 0;   // coefficient indices of 1 and -1
 constexpr int kMinusOne = 1;
 
-__device__ __forceinline__ Fr load2(const uint4* __restrict__ p) {
+template <int F>
+__device__ __forceinline__ Fp<F> load2(const uint4* __restrict__ p) {
+  static_assert(bn254::kLimbs<F> == bn254::N, "an Fr value is 8 limbs");
   const uint4 a = __ldg(p);
   const uint4 b = __ldg(p + 1);
-  Fr r;
+  Fp<F> r;
   r.v[0] = a.x, r.v[1] = a.y, r.v[2] = a.z, r.v[3] = a.w;
   r.v[4] = b.x, r.v[5] = b.y, r.v[6] = b.z, r.v[7] = b.w;
   return r;
 }
 
-__device__ __forceinline__ void store2(uint4* __restrict__ p, const Fr& a) {
+template <int F>
+__device__ __forceinline__ void store2(uint4* __restrict__ p,
+                                       const Fp<F>& a) {
   p[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
   p[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
 }
 
 // acc += coefficient * witness for nonzero e
-template <typename CI>
-__device__ __forceinline__ void accumulate(Fr& acc, int e,
+template <int F, typename CI>
+__device__ __forceinline__ void accumulate(Fp<F>& acc, int e,
                                            const int* __restrict__ wires,
                                            const CI* __restrict__ cidx,
                                            const uint4* __restrict__ coefs,
                                            const uint4* __restrict__ wit) {
-  const Fr w = load2(wit + 2 * (long long)__ldg(wires + e));
+  const Fp<F> w = load2<F>(wit + 2 * (long long)__ldg(wires + e));
   const int c = __ldg(cidx + e);
   if (c == kPlusOne) {
     acc = bn254::add(acc, w);
   } else if (c == kMinusOne) {
     acc = bn254::sub(acc, w);
   } else {
-    acc = bn254::add(acc, bn254::mul(load2(coefs + 2 * c), w));
+    acc = bn254::add(acc, bn254::mul(load2<F>(coefs + 2 * c), w));
   }
 }
 
@@ -90,7 +95,7 @@ __device__ __forceinline__ long long slot(long long g, long long nc,
   return s * m + (g - s * nc);
 }
 
-template <typename CI>
+template <int F, typename CI>
 __global__ void __launch_bounds__(kThreads)
     r1cs_kernel(const int* __restrict__ indptr, const int* __restrict__ wires,
                 const CI* __restrict__ cidx, const uint4* __restrict__ coefs,
@@ -103,7 +108,7 @@ __global__ void __launch_bounds__(kThreads)
     const long long r = b * kThreads + threadIdx.x;
     if (r >= n_short) return;
     const int lo = __ldg(indptr + r), hi = __ldg(indptr + r + 1);
-    Fr acc = bn254::zero<1>();
+    Fp<F> acc = bn254::zero<F>();
     for (int e = lo; e < hi; ++e)
       accumulate(acc, e, wires, cidx, coefs, wit);
     store2(out + 2 * slot(__ldg(dest + r), nc, m), acc);
@@ -114,8 +119,8 @@ __global__ void __launch_bounds__(kThreads)
     const long long t = (b - row_blocks) * kThreads + threadIdx.x;
     if (t >= 3 * pad) return;
     const long long s = t / pad, j = nc + (t - s * pad);
-    const Fr v = s == 0 && j - nc < n_pub ? load2(wit + 2 * (j - nc))
-                                          : bn254::zero<1>();
+    const Fp<F> v = s == 0 && j - nc < n_pub ? load2<F>(wit + 2 * (j - nc))
+                                             : bn254::zero<F>();
     store2(out + 2 * (s * m + j), v);
     return;
   }
@@ -127,12 +132,12 @@ __global__ void __launch_bounds__(kThreads)
   if (r >= 3 * nc) return;
   const int lane = threadIdx.x & 31;
   const int lo = __ldg(indptr + r), hi = __ldg(indptr + r + 1);
-  Fr acc = bn254::zero<1>();
+  Fp<F> acc = bn254::zero<F>();
   for (int e = lo + lane; e < hi; e += 32)
     accumulate(acc, e, wires, cidx, coefs, wit);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    Fr other;
+    Fp<F> other;
 #pragma unroll
     for (int i = 0; i < bn254::N; ++i)
       other.v[i] = __shfl_down_sync(0xffffffffu, acc.v[i], off);
@@ -141,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) store2(out + 2 * slot(__ldg(dest + r), nc, m), acc);
 }
 
-template <typename CI>
+template <int F, typename CI>
 int launch(const void* indptr, const void* wires, const void* cidx,
            const void* coefs, const void* wit, const void* dest,
            long long n_short, long long nc, long long m, long long n_pub,
@@ -150,8 +155,8 @@ int launch(const void* indptr, const void* wires, const void* cidx,
   const long long pad_blocks = (3 * (m - nc) + kThreads - 1) / kThreads;
   const long long long_blocks =
       (3 * nc - n_short + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  r1cs_kernel<CI><<<(unsigned)(row_blocks + pad_blocks + long_blocks),
-                    kThreads, 0, stream>>>(
+  r1cs_kernel<F, CI><<<(unsigned)(row_blocks + pad_blocks + long_blocks),
+                       kThreads, 0, stream>>>(
       (const int*)indptr, (const int*)wires, (const CI*)cidx,
       (const uint4*)coefs, (const uint4*)wit, (const int*)dest, n_short, nc,
       m, n_pub, row_blocks, pad_blocks, (uint4*)out);
@@ -160,19 +165,29 @@ int launch(const void* indptr, const void* wires, const void* cidx,
 
 }  // namespace
 
-extern "C" int r1cs_eval(int device, const void* indptr, const void* wires,
-                         const void* cidx, int cidx_bytes, const void* coefs,
-                         const void* wit, const void* dest, long long n_short,
-                         long long nc, long long m, long long n_pub, void* out,
-                         void* stream) {
+// field: 1 BN254's Fr, 2 BLS12-381's (bn254.cuh rows)
+extern "C" int r1cs_eval(int device, int field, const void* indptr,
+                         const void* wires, const void* cidx, int cidx_bytes,
+                         const void* coefs, const void* wit, const void* dest,
+                         long long n_short, long long nc, long long m,
+                         long long n_pub, void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (m <= 0) return 0;
-  if ((cidx_bytes != 2 && cidx_bytes != 4) || m < nc || n_short > 3 * nc)
+  if ((cidx_bytes != 2 && cidx_bytes != 4) || m < nc || n_short > 3 * nc ||
+      (field != 1 && field != 2))
     return (int)cudaErrorInvalidValue;
+  if (m <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (field == 1) {
+    if (cidx_bytes == 2)
+      return launch<1, int16_t>(indptr, wires, cidx, coefs, wit, dest,
+                                n_short, nc, m, n_pub, out, s);
+    return launch<1, int32_t>(indptr, wires, cidx, coefs, wit, dest, n_short,
+                              nc, m, n_pub, out, s);
+  }
   if (cidx_bytes == 2)
-    return launch<int16_t>(indptr, wires, cidx, coefs, wit, dest, n_short, nc,
-                           m, n_pub, out, (cudaStream_t)stream);
-  return launch<int32_t>(indptr, wires, cidx, coefs, wit, dest, n_short, nc,
-                         m, n_pub, out, (cudaStream_t)stream);
+    return launch<2, int16_t>(indptr, wires, cidx, coefs, wit, dest, n_short,
+                              nc, m, n_pub, out, s);
+  return launch<2, int32_t>(indptr, wires, cidx, coefs, wit, dest, n_short,
+                            nc, m, n_pub, out, s);
 }

@@ -1,4 +1,4 @@
-"""Groth16 JSON and in-memory entry points (BN254).
+"""Groth16 JSON and in-memory entry points (BN254 and BLS12-381).
 
 Port of the JSON half of eigen_zkvm_tpu/groth16/api.py: the same schema
 (groth16/src/json_utils.rs of the reference): G1 points as {"x","y"}
@@ -11,10 +11,11 @@ curve name, so that the two packages write the same bytes.
 (the JAX package pickles its key); `generate_verifier` renders the
 Solidity verifier, the JAX package's text byte for byte.
 
-The `*_inplace` entry points take any circuit object with `.constraints`,
-`.n_vars`, `.n_publics`, `.w` (the witness) and `.P` (its field, which must
-be BN254's Fr).  They run on the current CUDA device unless given
-`device="cpu"`.
+The `*_inplace` entry points take the curve's name (the names JAX
+api._curve reads: BN128 / BN254 or BLS12381) and any circuit object with
+`.constraints`, `.n_vars`, `.n_publics`, `.w` (the witness) and `.P` (its
+field, which must be the curve's scalar field).  They run on the current
+CUDA device unless given `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -28,11 +29,18 @@ from .groth16 import Proof, ProvingKey, VerifyingKey
 
 
 def _curve(name: str) -> str:
+    """The keys' curve name of a curve argument, as JAX api._curve reads
+    it."""
     if name in ("BN128", "bn128", "BN254", "bn254"):
         return "bn128"
     if name in ("BLS12381", "bls12381", "BLS12-381"):
-        raise NotImplementedError("the port's Groth16 is BN254 only")
+        return "bls12381"
     raise ValueError(f"unknown curve {name}")
+
+
+def _same_curve(cname: str, key_curve: str):
+    if key_curve != cname:
+        raise ValueError(f"a {key_curve} key used as a {cname} one")
 
 
 def _s(x: int, to_hex: bool) -> str:
@@ -116,10 +124,11 @@ def publics_from_json(s: str) -> list[int]:
 
 # ---- the proving-key file ----
 # One .npz (numpy's uncompressed zip of arrays, read without pickle): the
-# version, a JSON header with the sizes and the head points as decimal
-# strings, and each query's [n, 2, 4] (G1) or [n, 2, 2, 4] (G2) tensor of
-# affine Montgomery words.  The JAX package's CLI pickles its own
-# ProvingKey, which only that package can load.
+# version, a JSON header with the curve, the sizes and the head points as
+# decimal strings, and each query's [n, 2, W] (G1) or [n, 2, 2, W] (G2)
+# tensor of affine Montgomery words (W = 4 on BN254, 6 on BLS12-381).  The
+# JAX package's CLI pickles its own ProvingKey, which only that package can
+# load.
 
 PK_VERSION = 1
 _PK_QUERIES = ("a_query", "b1_query", "b2_query", "l_query", "h_query")
@@ -174,22 +183,23 @@ def load_pk(path: str, device=None) -> ProvingKey:
 
 def groth16_setup_inplace(curve_name: str, circuit, rng=None, device=None,
                           prof=None) -> tuple[ProvingKey, VerifyingKey]:
-    _curve(curve_name)
-    if circuit.P != core.R:
-        raise ValueError("circuit field != BN254's scalar field")
+    cname = _curve(curve_name)
+    if circuit.P != core.curve_of(cname).fr.modulus:
+        raise ValueError(f"circuit field != the {cname} scalar field")
     return core.setup(circuit.constraints, circuit.n_vars,
-                      circuit.n_publics, rng=rng, device=device, prof=prof)
+                      circuit.n_publics, rng=rng, device=device, prof=prof,
+                      curve=cname)
 
 
 def groth16_prove_inplace(curve_name: str, circuit, pk: ProvingKey,
                           rng=None, prof=None) -> tuple[Proof, list]:
-    _curve(curve_name)
+    _same_curve(_curve(curve_name), pk.curve_name)
     return core.prove(pk, circuit.constraints, circuit.w, rng=rng, prof=prof)
 
 
 def groth16_verify_inplace(curve_name: str, vk: VerifyingKey, proof: Proof,
                            publics) -> bool:
-    _curve(curve_name)
+    _same_curve(_curve(curve_name), vk.curve_name)
     return core.verify(vk, proof, publics)
 
 

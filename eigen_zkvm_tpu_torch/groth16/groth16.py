@@ -1,9 +1,13 @@
-"""Groth16 over BN254: circuit-specific setup, prover and verifier, with the
-group and field work on tensors.
+"""Groth16 over BN254 or BLS12-381: circuit-specific setup, prover and
+verifier, with the group and field work on tensors.
 
-Port of eigen_zkvm_tpu/groth16/groth16.py (BN254 only).  The same
-functions, in the same order, with the same random draws, so that a seeded
-rng gives the same keys and the same proof bytes:
+Port of eigen_zkvm_tpu/groth16/groth16.py, curve-generic as it is: `setup`
+takes the curve's name ("bn128", the default, or "bls12381"), the keys
+carry it (`curve_name`), and `prove` and `verify` take it from them; the
+curve (ops/ec.CURVES) gives the host arithmetic on ints
+(curves/bn254.py, curves/bls12_381.py), the groups and the scalar field.
+The same functions, in the same order, with the same random draws, so that
+a seeded rng gives the same keys and the same proof bytes:
   - `setup`: the QAP evaluation at tau on the host (`_eval_qap`, Python
     ints), then the fixed-base batches s_i * G1 and s_i * G2 on the device
     (ops/ec.scalar_mul_batch, kernel 2); the query points stay on the device
@@ -12,7 +16,10 @@ rng gives the same keys and the same proof bytes:
     kernel 4, then the coset transforms and the pointwise quotient, kernel
     3), the five MSMs (ops/ec.msm, kernel 1: A, B1, L and H in G1, B2 in
     G2), and the handful of point combinations on the host;
-  - `verify`: the multi-pairing on the host (curves/bn254.py).
+  - `verify`: the multi-pairing on the host (the curve module's).
+At BLS12-381 the same kernels run at its fields (the BLS instances of K1
+and K2, K3 and K4 at its r), where the JAX package runs its host C++
+engine (native/ec_curves.cpp).
 `device=None` takes the current CUDA device and raises without one;
 `device="cpu"` runs every kernel's plain version.
 
@@ -26,13 +33,19 @@ from dataclasses import dataclass
 
 import torch
 
-from ..curves import bn254
 from ..ops import bigint as bi
 from ..ops import ec, fr_ntt, r1cs
 from ..utils.devices import cuda_device
 from ..utils.profiler import Prof
 
-R = bn254.R
+
+def curve_of(name: str) -> ec.Curve:
+    """The curve of a key's `curve_name` ("bn128" or "bls12381")."""
+    try:
+        return ec.CURVES[name]
+    except KeyError:
+        raise ValueError(f"no Groth16 curve {name!r}: "
+                         f"{sorted(ec.CURVES)}") from None
 
 
 @dataclass
@@ -121,12 +134,14 @@ def _eval_qap(constraints, n_vars, n_pub_total, tau, r, m):
 
 
 def setup(constraints, n_vars: int, n_publics: int, rng=None,
-          device=None, prof: Prof | None = None
+          device=None, prof: Prof | None = None, curve: str = "bn128"
           ) -> tuple[ProvingKey, VerifyingKey]:
-    """Circuit-specific trusted setup (groth16.setup)."""
+    """Circuit-specific trusted setup (groth16.setup) over `curve`."""
     dev = resolve_device(device)
     prof = prof or Prof("groth16.setup", dev)
-    r = R
+    cv = curve_of(curve)
+    g1, g2 = ec.GROUPS[cv.name]
+    r = cv.fr.modulus
     rand = rng or (lambda: secrets.randbelow(r - 1) + 1)
     alpha, beta, gamma, delta, tau = (rand() for _ in range(5))
     n_pub_total = n_publics + 1  # one-wire is public
@@ -150,25 +165,25 @@ def setup(constraints, n_vars: int, n_publics: int, rng=None,
     g2_scalars = [beta, gamma, delta] + b_t
     prof.tick("qap")
     g1_pts = ec.scalar_mul_batch(
-        ec.G1, bn254.G1_GEN, bi.to_tensor([s % r for s in g1_scalars], dev))
+        g1, cv.ints.G1_GEN, bi.to_tensor([s % r for s in g1_scalars], dev))
     g2_pts = ec.scalar_mul_batch(
-        ec.G2, bn254.G2_GEN, bi.to_tensor([s % r for s in g2_scalars], dev))
+        g2, cv.ints.G2_GEN, bi.to_tensor([s % r for s in g2_scalars], dev))
     prof.tick("fixed-base batches")
 
-    head1 = ec.affine_ints(ec.G1, g1_pts[:3])
-    head2 = ec.affine_ints(ec.G2, g2_pts[:3])
+    head1 = ec.affine_ints(g1, g1_pts[:3])
+    head2 = ec.affine_ints(g2, g2_pts[:3])
     pos = 3
     a_query = g1_pts[pos : pos + n_vars]
     pos += n_vars
     b1_query = g1_pts[pos : pos + n_vars]
     pos += n_vars
-    ic = ec.affine_ints(ec.G1, g1_pts[pos : pos + n_pub_total])
+    ic = ec.affine_ints(g1, g1_pts[pos : pos + n_pub_total])
     pos += n_pub_total
     l_query = g1_pts[pos : pos + n_vars - n_pub_total]
     pos += n_vars - n_pub_total
     h_query = g1_pts[pos:]
     pk = ProvingKey(
-        curve_name="bn128", n_public=n_publics, n_vars=n_vars,
+        curve_name=cv.name, n_public=n_publics, n_vars=n_vars,
         domain_size=m, alpha1=head1[0], beta1=head1[1], beta2=head2[0],
         delta1=head1[2], delta2=head2[2], a_query=a_query,
         b1_query=b1_query, b2_query=g2_pts[3:], l_query=l_query,
@@ -185,35 +200,37 @@ def setup(constraints, n_vars: int, n_publics: int, rng=None,
 _rows_cache: dict = {}
 
 
-def r1cs_rows(constraints, device) -> r1cs.Rows:
-    """The R1CS rows (ops/r1cs.Rows) that `prove` evaluates for
-    `constraints` on `device`: built once per constraint list, so a caller
-    holding the list a prove took gets that prove's rows."""
-    key = (id(constraints), device)
+def r1cs_rows(constraints, device, field: bi.Field = bi.FR) -> r1cs.Rows:
+    """The R1CS rows (ops/r1cs.Rows) over `field` that `prove` evaluates
+    for `constraints` on `device`: built once per constraint list, so a
+    caller holding the list a prove took gets that prove's rows."""
+    key = (id(constraints), device, field.name)
     ent = _rows_cache.get(key)
     if ent is None or ent[0] is not constraints:
         _rows_cache.clear()
-        ent = _rows_cache[key] = (constraints, r1cs.build(constraints, device))
+        ent = _rows_cache[key] = (constraints,
+                                  r1cs.build(constraints, device, field))
     return ent[1]
 
 
 def _witness_h(constraints, wit: torch.Tensor, n_pub_total: int, m: int,
-               prof: Prof) -> torch.Tensor:
+               prof: Prof, field: bi.Field = bi.FR) -> torch.Tensor:
     """Coefficients of H = (A*B - C)/Z via coset NTTs over F_r
     (groth16._witness_h): [m - 1, 4] standard words."""
     log_m = m.bit_length() - 1
-    rows = r1cs_rows(constraints, wit.device)
+    rows = r1cs_rows(constraints, wit.device, field)
     prof.tick("csr")
-    wit_m = fr_ntt.to_mont(wit)
+    wit_m = fr_ntt.to_mont(wit, field=field)
     abz = r1cs.evaluate(rows, wit_m, m, n_pub_total)  # one launch, [3, m, 4]
     prof.tick("r1cs eval")
-    ac, bc, cc = (fr_ntt.to_coset(v, log_m) for v in abz)
-    k = fr_ntt.mont_const(fr_ntt.z_coset_inv(m), wit.device)
-    coeffs = fr_ntt.from_coset(fr_ntt.quotient(ac, bc, cc, k), log_m)
+    ac, bc, cc = (fr_ntt.to_coset(v, log_m, field=field) for v in abz)
+    k = fr_ntt.mont_const(fr_ntt.z_coset_inv(m, field), wit.device, field)
+    coeffs = fr_ntt.from_coset(fr_ntt.quotient(ac, bc, cc, k, field=field),
+                               log_m, field=field)
     prof.tick("ntts")
     if bool((coeffs[m - 1] != 0).any()):
         raise AssertionError("H degree overflow")
-    return fr_ntt.from_mont(coeffs[: m - 1])
+    return fr_ntt.from_mont(coeffs[: m - 1], field=field)
 
 
 def _msm(g, points, scalars: torch.Tensor):
@@ -222,10 +239,13 @@ def _msm(g, points, scalars: torch.Tensor):
 
 def prove(pk: ProvingKey, constraints, witness, rng=None,
           prof: Prof | None = None) -> tuple[Proof, list]:
-    """bellman create_random_proof equivalent (groth16.prove); returns
-    (proof, publics).  Runs on the device of the key's queries."""
-    c = bn254
-    r = R
+    """bellman create_random_proof equivalent (groth16.prove) over the key's
+    curve; returns (proof, publics).  Runs on the device of the key's
+    queries."""
+    cv = curve_of(pk.curve_name)
+    G1, G2 = ec.GROUPS[cv.name]
+    c = cv.ints
+    r = cv.fr.modulus
     dev = pk.a_query.device
     prof = prof or Prof("groth16.prove", dev)
     rand = rng or (lambda: secrets.randbelow(r))
@@ -234,26 +254,27 @@ def prove(pk: ProvingKey, constraints, witness, rng=None,
     n_pub_total = pk.n_public + 1
     wit = bi.to_tensor(witness, dev)
     prof.tick("witness")
-    h = _witness_h(constraints, wit, n_pub_total, pk.domain_size, prof)
+    h = _witness_h(constraints, wit, n_pub_total, pk.domain_size, prof,
+                   cv.fr)
     prof.tick("witness_h")
 
     g1 = c.g1_from_affine
-    a_acc = _msm(ec.G1, pk.a_query, wit)
+    a_acc = _msm(G1, pk.a_query, wit)
     prof.tick("msm A")
     A = c.g1_add(c.g1_add(g1(a_acc), g1(pk.alpha1)),
                  c.g1_mul(g1(pk.delta1), rr))
-    b2_acc = _msm(ec.G2, pk.b2_query, wit)
+    b2_acc = _msm(G2, pk.b2_query, wit)
     prof.tick("msm B2 (G2)")
     g2 = c.g2_from_affine
     B = c.g2_add(c.g2_add(g2(b2_acc), g2(pk.beta2)),
                  c.g2_mul(g2(pk.delta2), ss))
-    b1_acc = _msm(ec.G1, pk.b1_query, wit)
+    b1_acc = _msm(G1, pk.b1_query, wit)
     prof.tick("msm B1")
     B1 = c.g1_add(c.g1_add(g1(b1_acc), g1(pk.beta1)),
                   c.g1_mul(g1(pk.delta1), ss))
-    l_acc = _msm(ec.G1, pk.l_query, wit[n_pub_total:])
+    l_acc = _msm(G1, pk.l_query, wit[n_pub_total:])
     prof.tick("msm L")
-    h_acc = _msm(ec.G1, pk.h_query, h)
+    h_acc = _msm(G1, pk.h_query, h)
     prof.tick("msm H")
     C = c.g1_add(g1(l_acc), g1(h_acc))
     C = c.g1_add(C, c.g1_mul(A, ss))
@@ -267,9 +288,11 @@ def prove(pk: ProvingKey, constraints, witness, rng=None,
 
 
 def verify(vk: VerifyingKey, proof: Proof, publics) -> bool:
-    """e(A, B) == e(alpha, beta) * e(IC(pub), gamma) * e(C, delta)."""
-    c = bn254
-    r = R
+    """e(A, B) == e(alpha, beta) * e(IC(pub), gamma) * e(C, delta), on the
+    key's curve."""
+    cv = curve_of(vk.curve_name)
+    c = cv.ints
+    r = cv.fr.modulus
     publics = [int(x) % r for x in publics]
     if len(publics) + 1 != len(vk.ic):
         return False

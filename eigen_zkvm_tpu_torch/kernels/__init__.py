@@ -23,6 +23,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -105,7 +106,10 @@ def build(force: bool = False, csrc: str = CSRC, build_dir: str = BUILD_DIR,
     sources that include it; `force` recompiles all.  The nvcc jobs run
     together, then one link.  Returns {"seconds", "compiled" (the sources'
     names), "log"}; `log` holds ptxas's register and shared-memory report
-    of the compiled ones."""
+    of the compiled ones, and `jobs` one record a compiled source: its
+    name, the seconds from the start of the build to the end of its nvcc
+    job (the jobs run together, so the build's wall is the slowest job's
+    plus the link) and its `ptxas` report (`ptxas_report`)."""
     srcs = sorted(glob.glob(os.path.join(csrc, "*.cu")))
     if sources is not None:
         missing = set(sources) - {os.path.basename(src) for src in srcs}
@@ -125,7 +129,7 @@ def build(force: bool = False, csrc: str = CSRC, build_dir: str = BUILD_DIR,
         stamps[src] for src in srcs).encode()).hexdigest()
     if not todo and os.path.exists(lib) and \
             _read(lib + ".stamp") == lib_stamp:
-        return {"seconds": 0.0, "compiled": [], "log": ""}
+        return {"seconds": 0.0, "compiled": [], "log": "", "jobs": []}
     os.makedirs(build_dir, exist_ok=True)
     nvcc = nvcc or _nvcc()
     t0 = time.perf_counter()
@@ -135,12 +139,25 @@ def build(force: bool = False, csrc: str = CSRC, build_dir: str = BUILD_DIR,
         jobs.append((src, tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    outputs = [p.communicate() for _, _, p in jobs]  # reap all before raising
-    log = ""
-    for (src, tmp, p), (out, err) in zip(jobs, outputs):
+    outputs, ends = [None] * len(jobs), [0.0] * len(jobs)
+
+    def reap(i):  # each job's output and the time it ended
+        outputs[i] = jobs[i][2].communicate()
+        ends[i] = time.perf_counter() - t0
+
+    reapers = [threading.Thread(target=reap, args=(i,))
+               for i in range(len(jobs))]
+    for t in reapers:
+        t.start()
+    for t in reapers:  # reap all before raising
+        t.join()
+    log, records = "", []
+    for (src, tmp, p), (out, err), end in zip(jobs, outputs, ends):
         if p.returncode != 0:
             raise KernelError(f"nvcc failed on {src} ({p.returncode}):\n{err}")
         log += out + err
+        records.append({"source": os.path.basename(src), "seconds": end,
+                        "ptxas": ptxas_report(out + err)})
     for src, tmp, _ in jobs:  # the object first: a stale stamp rebuilds
         os.replace(tmp, obj(src))
         _write(obj(src) + ".stamp", stamps[src])
@@ -154,7 +171,24 @@ def build(force: bool = False, csrc: str = CSRC, build_dir: str = BUILD_DIR,
     _write(lib + ".stamp", lib_stamp)
     return {"seconds": seconds,
             "compiled": [os.path.basename(src) for src in todo],
-            "log": log + r.stdout + r.stderr}
+            "log": log + r.stdout + r.stderr,
+            "jobs": sorted(records, key=lambda j: -j["seconds"])}
+
+
+def ptxas_report(log: str) -> list[str]:
+    """ptxas's `-v` lines of a compile: each register line and spill line
+    under the kernel it follows (`Compiling entry function`), the kernel's
+    mangled name cut after its anonymous namespace's source tag."""
+    out, entry = [], ""
+    for line in log.splitlines():
+        text = line.split("info    :")[-1].strip()
+        if "Compiling entry function" in text:
+            entry = text.split("'")[1] if "'" in text else text
+            tag = re.search(r"_cu_[0-9a-f]{8}\d+", entry)
+            entry = entry[tag.end():] if tag else entry
+        elif "registers" in text or "spill" in text:
+            out.append(f"{entry}: {text}")
+    return out
 
 
 # every C entry of the library: its argument types (all return int)
@@ -167,16 +201,21 @@ SIGNATURES = {
     "gl_check": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP],
     "bn254_check": [_I, _I, _I, _VP, _VP, _VP, _LL, _VP],
     "msm_digits": [_I, _VP, _I, _VP, _LL, _I, _I, _VP, _VP, _VP, _VP],
-    "msm_level": [_I, _I, _I, _VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _VP],
-    "msm_level_capacity": [_I, _I, ctypes.POINTER(ctypes.c_int)],
-    "msm_window_chunks": [_I, _I, _VP, _I, _I, _I, _VP, _VP],
-    "msm_combine": [_I, _I, _VP, _I, _I, _VP, _VP],
+    **{f"{pre}_{name}": argtypes
+       for pre in ("msm", "msm_g2", "msm_bls", "msm_bls_g2")
+       for name, argtypes in (
+           ("level", [_I, _I, _I, _VP, _VP, _VP, _LL, _I, _VP, _VP, _VP,
+                      _VP]),
+           ("level_capacity", [_I, _I, ctypes.POINTER(ctypes.c_int)]),
+           ("window_chunks", [_I, _I, _VP, _I, _I, _I, _VP, _VP]),
+           ("combine", [_I, _I, _VP, _I, _I, _VP, _VP]))},
     "ec_fixed_base": [_I, _I, _VP, _VP, _LL, _VP, _VP, _VP],
-    "fr_ntt_pass": [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    "fr_mul": [_I, _VP, _VP, _I, _VP, _LL, _VP],
-    "fr_quotient": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
-    "r1cs_eval": [_I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _LL, _LL, _LL, _LL,
-                  _VP, _VP],
+    "ec_bls_fixed_base": [_I, _I, _VP, _VP, _LL, _VP, _VP, _VP],
+    "fr_ntt_pass": [_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "fr_mul": [_I, _I, _VP, _VP, _I, _VP, _LL, _VP],
+    "fr_quotient": [_I, _I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
+    "r1cs_eval": [_I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _LL, _LL, _LL,
+                  _LL, _VP, _VP],
     "poseidon_fr": [_I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
                     _VP, _I, _LL, _VP],
 }
@@ -271,12 +310,37 @@ FR_NTT = Kernel("fr_ntt", "fr_ntt_pass",
 R1CS = Kernel("r1cs", "r1cs_eval", "eigen_zkvm_tpu_torch/csrc/r1cs.cu",
               "eigen_zkvm_tpu/groth16/groth16.py::_witness_h (:315; "
               "_r1cs_csr :283)")
+# The Groth16 kernels at BLS12-381: K1 and K2 are their own translation
+# units (msm_bls.cu, ec_batch_bls.cu; msm_digits is every curve's), K3 and
+# K4 the BN254 sources' second field; each counts its own launches.  The JAX package runs this curve's
+# Groth16 on the host (native/ec_curves.cpp through groth16.py::_native_ec
+# :208), with no pallas_call.
+MSM_BLS = Kernel("msm_bls12381", "msm_bls_level",
+                 "eigen_zkvm_tpu_torch/csrc/msm_bls.cu",
+                 "eigen_zkvm_tpu/groth16/groth16.py::_msm (:241; "
+                 "native/ec_curves.cpp:2045, the BLS12-381 Pippenger), host "
+                 "code with no pallas_call")
+EC_BATCH_BLS = Kernel("ec_batch_bls12381", "ec_bls_fixed_base",
+                      "eigen_zkvm_tpu_torch/csrc/ec_batch_bls.cu",
+                      "eigen_zkvm_tpu/groth16/groth16.py::_fixed_base_all "
+                      "(:221) at BLS12-381, host code with no pallas_call")
+FR_NTT_BLS = Kernel("fr_ntt_bls12381", "fr_ntt_pass",
+                    "eigen_zkvm_tpu_torch/csrc/fr_ntt.cu",
+                    "eigen_zkvm_tpu/groth16/groth16.py::_witness_h (:315; "
+                    "_ntt/_intt :34-72) at BLS12-381's r, host code with no "
+                    "pallas_call")
+R1CS_BLS = Kernel("r1cs_bls12381", "r1cs_eval",
+                  "eigen_zkvm_tpu_torch/csrc/r1cs.cu",
+                  "eigen_zkvm_tpu/groth16/groth16.py::_witness_h (:315; "
+                  "_r1cs_csr :283) at BLS12-381's r, host code with no "
+                  "pallas_call")
 POSEIDON_FR = Kernel("poseidon_fr", "poseidon_fr",
                      "eigen_zkvm_tpu_torch/csrc/poseidon_fr.cu",
                      "eigen_zkvm_tpu/native/poseidon_fr.cpp:432 "
                      "(posfr_hash_batch; hash/poseidon_big.py:132 hash_ex), "
                      "host code with no pallas_call")
-KERNELS = (NTT, POSEIDON, MSM, EC_BATCH, FR_NTT, R1CS, POSEIDON_FR)
+KERNELS = (NTT, POSEIDON, MSM, EC_BATCH, FR_NTT, R1CS, POSEIDON_FR, MSM_BLS,
+           EC_BATCH_BLS, FR_NTT_BLS, R1CS_BLS)
 
 
 def reset_counts():

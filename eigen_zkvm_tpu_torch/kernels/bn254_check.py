@@ -5,9 +5,11 @@
 `operands` makes the edge pairs (every ordered pair of 0, 1, q - 1, q - 2
 and R mod q) followed by random pairs.  Operands are canonical words;
 mul, sqr and inv work in Montgomery form (mul(a, b) = a * b / R, inv(x) =
-R^2 / x), so the expected values are taken on the raw words.  `failures`
-runs every primitive of Fq, Fr and Fq2 and returns the mismatches;
-chip_smoke.py and the CUDA tests call it.
+R^2 / x, R = 2^256 or 2^384), so the expected values are taken on the raw
+words.  `failures` runs every primitive of the fields named (BN254's Fq
+and Fr by default; BLS12-381's Fq381 and Fr381) and of the Fq2 over each
+base field among them, and returns the mismatches; chip_smoke.py and the
+CUDA tests call it.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ from ..ops import bigint as bi
 
 OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3, "inv": 4, "neg": 5,
        "f2_mul": 6, "f2_sqr": 7, "f2_inv": 8}
-FIELDS = {"Fq": bi.FQ, "Fr": bi.FR}
+FIELDS = {"Fq": bi.FQ, "Fr": bi.FR, "Fr381": bi.FR_BLS, "Fq381": bi.FQ381}
+CODES = {"Fq": 0, "Fr": 1, "Fr381": 2, "Fq381": 3}   # bn254.cuh's rows
+BASE_FIELDS = ("Fq", "Fq381")                         # those with an Fq2
 
 
 def operands(op: str, field: bi.Field, n_random: int, seed: int = 0):
@@ -45,8 +49,8 @@ def operands(op: str, field: bi.Field, n_random: int, seed: int = 0):
 
 def expected(op: str, field: bi.Field, a: list, b: list) -> list:
     m = field.modulus
-    rinv = pow(1 << 256, -1, m)
-    r2 = (1 << 512) % m
+    rinv = pow(1 << field.rbits, -1, m)
+    r2 = field.r2
     if op == "mul":
         return [x * y * rinv % m for x, y in zip(a, b)]
     if op == "sqr":
@@ -76,25 +80,28 @@ def run(op: str, field: bi.Field, a: list, b: list, device: torch.device
         raise ValueError("bn254_check runs the device primitives: CUDA only")
     f2 = op.startswith("f2_")
     flat = (lambda v: [c for p in v for c in p]) if f2 else list
-    ta = bi.to_tensor(flat(a), device)
-    tb = bi.to_tensor(flat(b), device)
+    ta = bi.to_tensor(flat(a), device, field.words)
+    tb = bi.to_tensor(flat(b), device, field.words)
     out = torch.empty_like(ta)
+    code = next(CODES[k] for k, f in FIELDS.items() if f is field)
     check("bn254_check", library().bn254_check(
-        device.index, OPS[op], 0 if field is bi.FQ else 1, ta.data_ptr(),
-        tb.data_ptr(), out.data_ptr(), len(a),
-        torch.cuda.current_stream(device).cuda_stream))
+        device.index, OPS[op], code, ta.data_ptr(), tb.data_ptr(),
+        out.data_ptr(), len(a), torch.cuda.current_stream(device).cuda_stream))
     got = bi.to_ints(out)
     return list(zip(got[::2], got[1::2])) if f2 else got
 
 
-def failures(device: torch.device, n_random: int = 1 << 20) -> list[str]:
-    """Every primitive of Fq and Fr and the Fq2 ones on their edge pairs and
-    n_random random pairs (a sixteenth of that for the Fq2 ones); the
-    mismatches as strings, empty when the device arithmetic is right."""
+def failures(device: torch.device, n_random: int = 1 << 20,
+             fields=("Fq", "Fr")) -> list[str]:
+    """Every primitive of the `fields` named (keys of FIELDS) and the Fq2
+    ones over each base field among them, on their edge pairs and n_random
+    random pairs (a sixteenth of that for the Fq2 ones); the mismatches as
+    strings, empty when the device arithmetic is right."""
     bad = []
-    for fname, field in FIELDS.items():
+    for fname in fields:
+        field = FIELDS[fname]
         for op, code in OPS.items():
-            if op.startswith("f2_") and field is not bi.FQ:
+            if op.startswith("f2_") and fname not in BASE_FIELDS:
                 continue
             a, b = operands(op, field, n_random >> 4 if op.startswith("f2_")
                             else n_random, seed=code)

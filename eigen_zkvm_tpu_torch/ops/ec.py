@@ -1,11 +1,17 @@
-"""Batched BN254 G1 and G2 on tensors: the plain point arithmetic, the
-multi-scalar multiplication (kernel 1, csrc/msm.cu) and the fixed-base
-batch (kernel 2, csrc/ec_batch.cu).
+"""Batched G1 and G2 of BN254 and of BLS12-381 on tensors: the plain point
+arithmetic, the multi-scalar multiplication (kernel 1, csrc/msm.cuh in
+csrc/msm{,_g2,_g2_sums,_bls}.cu) and the fixed-base batch (kernel 2,
+csrc/ec_batch.cu and csrc/ec_batch_bls.cu).
 
-Port of eigen_zkvm_tpu/ops/ec_jax.py, for G1 over Fq and G2 over Fq2.
-Points cross the module as words in Montgomery form (ops/bigint.py):
-affine G1 [n, 2, 4] (x, y), affine G2 [n, 2, 2, 4]; Jacobian points, which
-pass between the MSM's stages, [n, 3, 4] and [n, 3, 2, 4] (X, Y, Z).  The
+Port of eigen_zkvm_tpu/ops/ec_jax.py, for G1 over Fq and G2 over Fq2, and
+of the host group arithmetic the JAX package runs for BLS12-381.  A
+`Curve` holds what differs between the two (base and scalar field, scalar
+bits, host arithmetic on ints, the kernels); a `Group` (G1, G2, G1_BLS,
+G2_BLS) is one of its groups.  Points cross the module as words in
+Montgomery form (ops/bigint.py), W words a base-field element (4 for
+BN254, 6 for BLS12-381): affine G1 [n, 2, W] (x, y), affine G2 [n, 2, 2,
+W]; Jacobian points, which pass between the MSM's stages, [n, 3, W] and
+[n, 3, 2, W] (X, Y, Z).  The
 point at infinity is (0, 0) in affine form, which lies on neither curve, and
 Z = 0 in Jacobian form.  The plain arithmetic works on limb tensors
 (bigint.limbs) with ec_jax's complete formulas: dbl-2009-l doubling and the
@@ -47,58 +53,106 @@ import time
 import torch
 
 from .. import kernels
-from ..curves import bn254
+from ..curves import bls12_381, bn254
 from . import bigint as bi
-from .bigint import FQ
 
-NBITS = 254          # Fr scalars fit 254 bits
+NBITS = 254          # BN254's Fr scalars fit 254 bits
 TABLE_BITS = 8       # window of the plain fixed-base tables
 
 
-class Group:
-    """G1 (coordinates in Fq, deg 1) or G2 (coordinates in Fq2, deg 2)."""
+class Curve:
+    """What the group code needs of a pairing curve: its name (the JSON's
+    and the key file's), the host arithmetic on Python ints (a module with
+    curves/bn254.py's interface), its base field `fq` and scalar field
+    `fr` (ops/bigint.Field), the bits of its scalars, and its MSM and
+    fixed-base kernels (their launch counts)."""
 
-    def __init__(self, name: str, deg: int, code: int):
+    def __init__(self, name: str, ints, fq: bi.Field, fr: bi.Field,
+                 nbits: int, msm: kernels.Kernel, batch: kernels.Kernel):
         self.name = name
+        self.ints = ints
+        self.fq = fq
+        self.fr = fr
+        self.nbits = nbits
+        self.msm = msm
+        self.batch = batch
+
+    def __repr__(self) -> str:
+        return self.name
+
+
+BN254 = Curve("bn128", bn254, bi.FQ, bi.FR, NBITS, kernels.MSM,
+              kernels.EC_BATCH)
+# BLS12-381's r is 255 bits (about 0.45 * 2^256): its signed digits cover
+# 256 bits, its fixed-base tables the same 32 windows of 8 bits
+BLS12_381 = Curve("bls12381", bls12_381, bi.FQ381, bi.FR_BLS, 255,
+                  kernels.MSM_BLS, kernels.EC_BATCH_BLS)
+
+
+class Group:
+    """G1 (coordinates in the curve's Fq, deg 1) or G2 (in its Fq2, deg 2)
+    of `curve`; `code` is the kernels' curve argument, `prefix` the prefix
+    of its MSM stages' C entries (csrc/msm.cuh)."""
+
+    def __init__(self, name: str, curve: Curve, deg: int, code: int,
+                 prefix: str):
+        self.name = name
+        self.curve = curve
+        self.field = curve.fq
         self.deg = deg
-        self.code = code          # the kernels' curve argument
+        self.code = code
+        self.prefix = prefix
 
     def __repr__(self) -> str:
         return self.name
 
     def mul(self, a, b):
-        return bi.mul(FQ, a, b) if self.deg == 1 else bi.f2_mul(a, b)
+        return bi.mul(self.field, a, b) if self.deg == 1 else \
+            bi.f2_mul(a, b, self.field)
 
     def add(self, a, b):
-        return bi.add(FQ, a, b)
+        return bi.add(self.field, a, b)
 
     def sub(self, a, b):
-        return bi.sub(FQ, a, b)
+        return bi.sub(self.field, a, b)
+
+    def neg(self, a):
+        return bi.neg(self.field, a)
 
     def is_zero(self, a):
         return bi.is_zero(a, self.deg)
 
     def one(self, device):
-        o = bi.const(FQ.one, device)
+        o = bi.one(self.field, device)
         return o if self.deg == 1 else torch.stack([o, torch.zeros_like(o)])
 
     def inv(self, a):
         """Batch inverse over the leading dimension (no zeros)."""
+        f = self.field
         if self.deg == 1:
-            return bi.batch_inv(FQ, a)
-        sq = bi.mul(FQ, a, a)
-        t = bi.batch_inv(FQ, bi.add(FQ, sq[..., 0, :], sq[..., 1, :]))
-        c = torch.stack([a[..., 0, :], bi.neg(FQ, a[..., 1, :])], -2)
-        return bi.mul(FQ, c, t.unsqueeze(-2).expand_as(c))
+            return bi.batch_inv(f, a)
+        sq = bi.mul(f, a, a)
+        t = bi.batch_inv(f, bi.add(f, sq[..., 0, :], sq[..., 1, :]))
+        c = torch.stack([a[..., 0, :], bi.neg(f, a[..., 1, :])], -2)
+        return bi.mul(f, c, t.unsqueeze(-2).expand_as(c))
 
     @property
     def coord_shape(self) -> tuple:
         """Word shape of one coordinate."""
-        return (4,) if self.deg == 1 else (2, 4)
+        w = self.field.words
+        return (w,) if self.deg == 1 else (2, w)
+
+    @property
+    def nbits(self) -> int:
+        return self.curve.nbits
 
 
-G1 = Group("G1", 1, 1)
-G2 = Group("G2", 2, 2)
+G1 = Group("G1", BN254, 1, 1, "msm")
+G2 = Group("G2", BN254, 2, 2, "msm_g2")
+G1_BLS = Group("BLS12-381 G1", BLS12_381, 1, 3, "msm_bls")
+G2_BLS = Group("BLS12-381 G2", BLS12_381, 2, 4, "msm_bls_g2")
+GROUPS = {BN254.name: (G1, G2), BLS12_381.name: (G1_BLS, G2_BLS)}
+CURVES = {BN254.name: BN254, BLS12_381.name: BLS12_381}
 
 
 def _muls(g: Group, *pairs):
@@ -231,15 +285,17 @@ def to_affine(g: Group, p) -> torch.Tensor:
 
 def affine_tensor(g: Group, points, device=None) -> torch.Tensor:
     """Affine points as Python ints (None = infinity) -> Montgomery words."""
+    f = g.field
     vals = []
     for p in points:
         if p is None:
             vals.extend([0] * (2 * g.deg))
         elif g.deg == 1:
-            vals.extend(FQ.to_mont_int(v) for v in p)
+            vals.extend(f.to_mont_int(v) for v in p)
         else:
-            vals.extend(FQ.to_mont_int(v) for c in p for v in c)
-    return bi.to_tensor(vals, device).view(len(points), 2, *g.coord_shape)
+            vals.extend(f.to_mont_int(v) for c in p for v in c)
+    return bi.to_tensor(vals, device, f.words).view(len(points), 2,
+                                                     *g.coord_shape)
 
 
 def affine_ints(g: Group, t: torch.Tensor) -> list:
@@ -253,7 +309,7 @@ def affine_ints(g: Group, t: torch.Tensor) -> list:
         if not any(c):
             out.append(None)
             continue
-        c = [FQ.from_mont_int(x) for x in c]
+        c = [g.field.from_mont_int(x) for x in c]
         out.append((c[0], c[1]) if g.deg == 1
                    else ((c[0], c[1]), (c[2], c[3])))
     return out
@@ -295,10 +351,12 @@ def window_bits(n: int) -> int:
     return max(4, min(14, n.bit_length() - 7))
 
 
-def n_windows(c: int) -> int:
-    """Windows of signed c-bit digits: c W >= 255 leaves the top window
-    room for the carry out of the one below (scalars < r < 2^254)."""
-    return -(-(NBITS + 1) // c)
+def n_windows(c: int, nbits: int = NBITS) -> int:
+    """Windows of signed c-bit digits of scalars below 2^nbits: c W >=
+    nbits + 1 leaves the top window room for the carry out of the one below
+    (BN254: scalars < r < 2^254, c W >= 255; BLS12-381: r < 2^255, c W >=
+    256, so c (W - 1) may be 255, the highest bit a window starts at)."""
+    return -(-(nbits + 1) // c)
 
 
 def digits(scalars: torch.Tensor, c: int, windows: int | None = None
@@ -316,11 +374,13 @@ def digits(scalars: torch.Tensor, c: int, windows: int | None = None
     return torch.stack(cols, 1)
 
 
-def signed_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
-    """[n, 4] standard words below 2^254 -> [n, n_windows(c)] digits in
-    (-2^(c-1), 2^(c-1)] with sum_w d_w 2^(c w) = s: a digit above 2^(c-1)
-    becomes d - 2^c and carries one into the next window."""
-    raw = digits(scalars, c, n_windows(c))
+def signed_digits(scalars: torch.Tensor, c: int, nbits: int = NBITS
+                  ) -> torch.Tensor:
+    """[n, 4] standard words below 2^nbits -> [n, n_windows(c, nbits)]
+    digits in (-2^(c-1), 2^(c-1)] with sum_w d_w 2^(c w) = s: a digit
+    above 2^(c-1) becomes d - 2^c and carries one into the next window
+    (never out of the top one: n_windows)."""
+    raw = digits(scalars, c, n_windows(c, nbits))
     half = 1 << (c - 1)
     carry = torch.zeros_like(raw[:, 0])
     cols = []
@@ -341,7 +401,7 @@ def _entry_points(g: Group, pts, refs, a: int, b: int):
         return from_jacobian(pts[a:b])
     r = refs[a:b].long()
     x, y, z = from_affine(g, pts[r >> 1])
-    return x, bi.select((r & 1).bool(), bi.neg(FQ, y), y), z
+    return x, bi.select((r & 1).bool(), g.neg(y), y), z
 
 
 def _segment_sums(g: Group, pts, refs, start: torch.Tensor, end: int
@@ -423,18 +483,20 @@ def level(g: Group, pts: torch.Tensor, refs, keys: torch.Tensor, L: int,
     ck = torch.empty(2 * C, dtype=torch.int32, device=dev)
     cp = torch.empty((2 * C, 3, *g.coord_shape), dtype=torch.int64,
                      device=dev)
-    kernels.MSM.launch(dev.index, g.code, int(refs is not None),
+    g.curve.msm.launch(dev.index, g.code, int(refs is not None),
                        pts.data_ptr(), kernels.pointer(refs), keys.data_ptr(),
                        keys.numel(), L, sums.data_ptr(), ck.data_ptr(),
-                       cp.data_ptr(), stream=_stream(dev), entry="msm_level")
+                       cp.data_ptr(), stream=_stream(dev),
+                       entry=f"{g.prefix}_level")
     return ck, cp
 
 
 @functools.lru_cache(maxsize=None)
-def _level_capacity(device_index: int, code: int) -> int:
+def _level_capacity(device_index: int, g: Group) -> int:
     threads = ctypes.c_int()
-    kernels.check("msm", kernels.library().msm_level_capacity(
-        device_index, code, ctypes.byref(threads)))
+    kernels.check(g.curve.msm.name, getattr(
+        kernels.library(), f"{g.prefix}_level_capacity")(
+            device_index, g.code, ctypes.byref(threads)))
     return threads.value
 
 
@@ -445,7 +507,7 @@ def first_chunk(g: Group, keys: torch.Tensor) -> int:
     chunks; the plain version on a CUDA tensor cuts the same chunks)."""
     if keys.device.type == "cpu":
         return BUCKET_CHUNK
-    cap = _level_capacity(keys.device.index, g.code)
+    cap = _level_capacity(keys.device.index, g)
     return max(BUCKET_CHUNK, -(-keys.numel() // cap))
 
 
@@ -501,16 +563,17 @@ def window_chunks(g: Group, buckets: torch.Tensor, m: int, s: int,
         return window_chunks_plain(g, buckets, m, s, n_win)
     out = torch.empty((n_win * (m // s), 3, *g.coord_shape),
                       dtype=torch.int64, device=buckets.device)
-    kernels.MSM.launch(buckets.device.index, g.code, buckets.data_ptr(), m, s,
-                       n_win, out.data_ptr(), stream=_stream(buckets.device),
-                       entry="msm_window_chunks")
+    g.curve.msm.launch(buckets.device.index, g.code, buckets.data_ptr(), m,
+                       s, n_win, out.data_ptr(),
+                       stream=_stream(buckets.device),
+                       entry=f"{g.prefix}_window_chunks")
     return out
 
 
 def _jacobian_ints(g: Group, pts: torch.Tensor) -> list:
     """Jacobian Montgomery words [n, 3, ...] -> Python Jacobian points in
-    standard form (the same projective points, curves/bn254.py's form)."""
-    v = [FQ.from_mont_int(x) for x in bi.to_ints(pts)]
+    standard form (the same projective points, the curve module's form)."""
+    v = [g.field.from_mont_int(x) for x in bi.to_ints(pts)]
     if g.deg == 1:
         return [tuple(v[i : i + 3]) for i in range(0, len(v), 3)]
     return [tuple((v[j], v[j + 1]) for j in range(i, i + 6, 2))
@@ -519,17 +582,18 @@ def _jacobian_ints(g: Group, pts: torch.Tensor) -> list:
 
 def combine_plain(g: Group, windows: torch.Tensor, c: int) -> torch.Tensor:
     """Plain version of msm_combine: sum_w 2^(c w) V_w over the window
-    sums [W] (Jacobian words) by Horner's rule, on Python ints
-    (curves/bn254.py).  The fold is a chain of c (W - 1) doublings of one
-    point, as in the kernel's one thread; as tensor code each doubling
-    would be a round of a few hundred operations on one element.  The
-    affine result [1, 2, ...]."""
+    sums [W] (Jacobian words) by Horner's rule, on Python ints (the curve's
+    module, curves/bn254.py or curves/bls12_381.py).  The fold is a chain of
+    c (W - 1) doublings of one point, as in the kernel's one thread; as
+    tensor code each doubling would be a round of a few hundred operations
+    on one element.  The affine result [1, 2, ...]."""
+    c_ = g.curve.ints
     if g.deg == 1:
-        dbl_, add_, to_, res = (bn254.g1_double, bn254.g1_add,
-                                bn254.g1_to_affine, bn254.G1_ZERO)
+        dbl_, add_, to_, res = (c_.g1_double, c_.g1_add, c_.g1_to_affine,
+                                c_.G1_ZERO)
     else:
-        dbl_, add_, to_, res = (bn254.g2_double, bn254.g2_add,
-                                bn254.g2_to_affine, bn254.G2_ZERO)
+        dbl_, add_, to_, res = (c_.g2_double, c_.g2_add, c_.g2_to_affine,
+                                c_.G2_ZERO)
     for p in reversed(_jacobian_ints(g, windows)):
         for _ in range(c):
             res = dbl_(res)
@@ -543,17 +607,19 @@ def combine(g: Group, windows: torch.Tensor, c: int) -> torch.Tensor:
         return combine_plain(g, windows, c)
     out = torch.empty((1, 2, *g.coord_shape), dtype=torch.int64,
                       device=windows.device)
-    kernels.MSM.launch(windows.device.index, g.code, windows.data_ptr(), c,
+    g.curve.msm.launch(windows.device.index, g.code, windows.data_ptr(), c,
                        windows.shape[0], out.data_ptr(),
-                       stream=_stream(windows.device), entry="msm_combine")
+                       stream=_stream(windows.device),
+                       entry=f"{g.prefix}_combine")
     return out
 
 
-def entries_plain(points: torch.Tensor, scalars: torch.Tensor, c: int):
+def entries_plain(points: torch.Tensor, scalars: torch.Tensor, c: int,
+                  curve: Curve = BN254):
     """Plain version of msm_digits: one entry per nonzero signed digit of a
     finite point, (keys, refs) int32 [M]: key w 2^(c-1) + |d| - 1 (window
     w's bucket of |d|), ref the point's index << 1 | (d < 0)."""
-    d = signed_digits(scalars, c)
+    d = signed_digits(scalars, c, curve.nbits)
     W = d.shape[1]
     live = ~(points.flatten(1) == 0).all(1)
     ent = torch.nonzero(((d != 0) & live.unsqueeze(1)).view(-1)).squeeze(1)
@@ -563,21 +629,22 @@ def entries_plain(points: torch.Tensor, scalars: torch.Tensor, c: int):
     return keys, refs
 
 
-def entries(points: torch.Tensor, scalars: torch.Tensor, c: int):
+def entries(points: torch.Tensor, scalars: torch.Tensor, c: int,
+            curve: Curve = BN254):
     """Stage 1: kernel 1's msm_digits for CUDA tensors (entries in the
     order its warps reserve them); the count is read back, the MSM's one
     host sync."""
     if points.device.type == "cpu":
-        return entries_plain(points, scalars, c)
+        return entries_plain(points, scalars, c, curve)
     dev = points.device
-    n, W = points.shape[0], n_windows(c)
+    n, W = points.shape[0], n_windows(c, curve.nbits)
     keys = torch.empty(n * W, dtype=torch.int32, device=dev)
     refs = torch.empty(n * W, dtype=torch.int32, device=dev)
     count = torch.zeros(1, dtype=torch.int64, device=dev)
-    kernels.MSM.launch(dev.index, points.data_ptr(), points[0].numel(),
-                       scalars.data_ptr(), n, c, W, keys.data_ptr(),
-                       refs.data_ptr(), count.data_ptr(), stream=_stream(dev),
-                       entry="msm_digits")
+    curve.msm.launch(dev.index, points.data_ptr(), points[0].numel(),
+                     scalars.data_ptr(), n, c, W, keys.data_ptr(),
+                     refs.data_ptr(), count.data_ptr(), stream=_stream(dev),
+                     entry="msm_digits")
     M = int(count)
     return keys[:M], refs[:M]
 
@@ -596,9 +663,9 @@ def _pippenger(g: Group, points: torch.Tensor, scalars: torch.Tensor,
         raise ValueError(f"msm of {n} points: refs are int32")
     c = window_bits(n)
     m = 1 << (c - 1)        # buckets a window: |digit| in 1..2^(c-1)
-    W = n_windows(c)
+    W = n_windows(c, g.nbits)
     _mark(trace, "start", dev)
-    keys, refs = entries_fn(points, scalars, c)
+    keys, refs = entries_fn(points, scalars, c, g.curve)
     _mark(trace, "entries (sync)", dev, entries=keys.numel())
     if keys.numel() == 0:   # every scalar zero or every point infinity
         return torch.zeros((1, 2, *g.coord_shape), dtype=torch.int64,
@@ -668,7 +735,7 @@ def msm_plain(g: Group, points: torch.Tensor, scalars: torch.Tensor
     if points.shape[0] == 0:
         return torch.zeros((1, 2, *g.coord_shape), dtype=torch.int64,
                            device=points.device)
-    bits = digits(scalars, 1)
+    bits = digits(scalars, 1, g.nbits)
     top = torch.nonzero(bits.any(0))
     base = from_affine(g, points)
     acc = tuple(torch.zeros_like(v) for v in base)     # Z = 0: infinity
@@ -687,28 +754,31 @@ def msm_plain(g: Group, points: torch.Tensor, scalars: torch.Tensor
 # ---- fixed-base batch ----
 
 def generator(g: Group):
-    return bn254.G1_GEN if g.deg == 1 else bn254.G2_GEN
+    c_ = g.curve.ints
+    return c_.G1_GEN if g.deg == 1 else c_.G2_GEN
 
 
 @functools.lru_cache(maxsize=8)
 def _table(g: Group, base, device: torch.device) -> torch.Tensor:
-    """Affine words [ceil(254/8), 256, 2, ...]: entry (w, d) is
-    d * 2^(8w) * base (d = 0: infinity), built on the host."""
+    """Affine words [ceil(nbits/8), 256, 2, ...] (32 windows on both
+    curves): entry (w, d) is d * 2^(8w) * base (d = 0: infinity), built on
+    the host."""
+    c_ = g.curve.ints
     if g.deg == 1:
-        from_a, add_, to_a, zero = (bn254.g1_from_affine, bn254.g1_add,
-                                    bn254.g1_to_affine_all, bn254.G1_ZERO)
+        from_a, add_, to_a, zero = (c_.g1_from_affine, c_.g1_add,
+                                    c_.g1_to_affine_all, c_.G1_ZERO)
     else:
-        from_a, add_, to_a, zero = (bn254.g2_from_affine, bn254.g2_add,
-                                    bn254.g2_to_affine_all, bn254.G2_ZERO)
+        from_a, add_, to_a, zero = (c_.g2_from_affine, c_.g2_add,
+                                    c_.g2_to_affine_all, c_.G2_ZERO)
+    W = -(-g.nbits // TABLE_BITS)
     rows = []
     b = from_a(base)
-    for _ in range(-(-NBITS // TABLE_BITS)):
+    for _ in range(W):
         row = [zero]
         for _d in range(1, 1 << TABLE_BITS):
             row.append(add_(row[-1], b))
         rows.extend(row)
         b = add_(row[-1], b)
-    W = -(-NBITS // TABLE_BITS)
     return affine_tensor(g, to_a(rows), device).view(
         W, 1 << TABLE_BITS, 2, *g.coord_shape)
 
@@ -722,7 +792,7 @@ def scalar_mul_batch_plain(g: Group, base, scalars: torch.Tensor
     tab = _table(g, base, scalars.device)
     out = []
     for part in scalars.split(PLAIN_CHUNK):
-        d = digits(part, TABLE_BITS)
+        d = digits(part, TABLE_BITS, tab.shape[0])
         acc = from_affine(g, tab[0, d[:, 0]])
         for w in range(1, tab.shape[0]):
             acc = add_affine(g, acc, affine_limbs(g, tab[w, d[:, w]]))
@@ -734,7 +804,8 @@ def scalar_mul_batch_plain(g: Group, base, scalars: torch.Tensor
 
 def scalar_mul_batch(g: Group, base, scalars: torch.Tensor) -> torch.Tensor:
     """s_i * base (base: affine Python ints), affine Montgomery words
-    [n, 2, ...]: kernel 2 (csrc/ec_batch.cu) for a CUDA tensor."""
+    [n, 2, ...]: kernel 2 (csrc/ec_batch.cu, csrc/ec_batch_bls.cu) for a
+    CUDA tensor."""
     if scalars.dtype != torch.int64 or scalars.dim() != 2 or \
             scalars.shape[1] != 4:
         raise ValueError(f"scalars: int64 [n, 4], got {scalars.dtype} "
@@ -752,10 +823,10 @@ def _scalar_mul_batch_cuda(g, base, scalars):
     if n:
         tab = _table(g, base, scalars.device)
         scratch = torch.empty_like(out)   # Z and the prefix products
-        kernels.EC_BATCH.launch(scalars.device.index, g.code, tab.data_ptr(),
-                                scalars.data_ptr(), n, out.data_ptr(),
-                                scratch.data_ptr(),
-                                stream=_stream(scalars.device))
+        batch = g.curve.batch
+        batch.launch(scalars.device.index, g.code, tab.data_ptr(),
+                     scalars.data_ptr(), n, out.data_ptr(),
+                     scratch.data_ptr(), stream=_stream(scalars.device))
     return out
 
 

@@ -1,5 +1,8 @@
-"""R1CS evaluation over BN254's Fr: A*w, B*w and C*w for Groth16's quotient,
-padded to the domain with the publics in A's tail (kernel 4, csrc/r1cs.cu).
+"""R1CS evaluation over a Groth16 scalar field, BN254's Fr or BLS12-381's
+(`build`'s `field`, carried by the `Rows`): A*w, B*w and C*w for the
+quotient, padded to the domain with the publics in A's tail (kernel 4,
+csrc/r1cs.cu; the two fields count their launches apart, kernels.R1CS and
+kernels.R1CS_BLS).
 
 Port of the sparse evaluation of eigen_zkvm_tpu/groth16/groth16.py
 (`_r1cs_csr`, `_witness_h` :315-341).  `build` turns a constraint list into
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from . import bigint as bi
-from .bigint import FR
+from .bigint import FR, Field
 
 # Rows of more nonzeros than this take a warp in the kernel: timed on the
 # card (kernel_tune --r1cs, PERF.md section 6), rows of 16 were 2.6x
@@ -48,15 +51,17 @@ class Rows:
     coefs: torch.Tensor      # [distinct, 4] Montgomery words; 1, -1 first
     dest: torch.Tensor       # [3 nc] int32: a stored row's s nc + j
     n_short: int             # stored rows 0..n_short-1: a thread each
+    field: Field = FR        # the scalar field of the coefficients
 
     @property
     def nnz(self) -> int:
         return self.wires.numel()
 
 
-def build(constraints, device) -> Rows:
-    """The rows of a list of ({wire: coef},) * 3 constraints."""
-    r = FR.modulus
+def build(constraints, device, field: Field = FR) -> Rows:
+    """The rows of a list of ({wire: coef},) * 3 constraints over
+    `field`."""
+    r = field.modulus
     uniq: dict = {1: 0, r - 1: 1}
     nc = len(constraints)
     lens = np.empty(3 * nc, dtype=np.int64)
@@ -103,9 +108,10 @@ def build(constraints, device) -> Rows:
     stored_wires, stored_cidx = torch.empty_like(wires), torch.empty_like(cidx)
     stored_wires[pos], stored_cidx[pos] = wires, cidx
     return Rows(nc=nc, indptr=indptr.to(torch.int32), wires=stored_wires,
-                cidx=stored_cidx, coefs=bi.mont_ints(FR, list(uniq), device),
+                cidx=stored_cidx,
+                coefs=bi.mont_ints(field, list(uniq), device),
                 dest=order.to(torch.int32),
-                n_short=int((lens <= SHORT_MAX).sum()))
+                n_short=int((lens <= SHORT_MAX).sum()), field=field)
 
 
 def _sums_plain(rows: Rows, wit: torch.Tensor, lo: int, hi: int):
@@ -115,7 +121,7 @@ def _sums_plain(rows: Rows, wit: torch.Tensor, lo: int, hi: int):
     seg = slice(int(ptr[0]), int(ptr[-1]))
     row = torch.repeat_interleave(torch.arange(hi - lo, device=wit.device),
                                   lens)
-    prod = bi.mul(FR, bi.limbs(rows.coefs[rows.cidx[seg].long()]),
+    prod = bi.mul(rows.field, bi.limbs(rows.coefs[rows.cidx[seg].long()]),
                   bi.limbs(wit[rows.wires[seg].long()]))
     acc = torch.zeros((hi - lo, bi.NLIMB), dtype=torch.int64,
                       device=wit.device)
@@ -125,8 +131,8 @@ def _sums_plain(rows: Rows, wit: torch.Tensor, lo: int, hi: int):
     k = max(1, int(lens.max()).bit_length()) if hi > lo else 1
     x = bi._norm(F.pad(acc, (0, 2)))
     for j in range(k - 1, -1, -1):
-        d, borrow = bi._sub_wrap(x, bi.const(FR.modulus << j, x.device,
-                                             bi.NLIMB + 2))
+        d, borrow = bi._sub_wrap(x, bi.const(rows.field.modulus << j,
+                                             x.device, bi.NLIMB + 2))
         x = bi.select(borrow, x, d)
     return bi.words(x[..., : bi.NLIMB])
 
@@ -182,9 +188,16 @@ def _evaluate_cuda(rows: Rows, wit: torch.Tensor, m: int,
         raise ValueError(f"rows: {rows.indptr.numel()} offsets, "
                          f"{rows.dest.numel()} places, {rows.n_short} short "
                          f"rows for {rows.nc} constraints")
+    if rows.field is FR:
+        kernel, code = kernels.R1CS, 1
+    elif rows.field is bi.FR_BLS:
+        kernel, code = kernels.R1CS_BLS, 2
+    else:
+        raise ValueError(f"r1cs_eval serves BN254's and BLS12-381's r, not "
+                         f"{rows.field}")
     out = torch.empty((3, m, 4), dtype=torch.int64, device=wit.device)
-    kernels.R1CS.launch(
-        wit.device.index, rows.indptr.data_ptr(), rows.wires.data_ptr(),
+    kernel.launch(
+        wit.device.index, code, rows.indptr.data_ptr(), rows.wires.data_ptr(),
         rows.cidx.data_ptr(), rows.cidx.element_size(),
         rows.coefs.data_ptr(), wit.data_ptr(), rows.dest.data_ptr(),
         rows.n_short, rows.nc, m, n_pub, out.data_ptr(),

@@ -318,7 +318,7 @@ def test_stark_commands_write_the_jax_cli_bytes(tmp_path):
 def test_unported_options_and_missing_card_raise(monkeypatch, tmp_path):
     files = _write_circuit_files(tmp_path, _toy_circuit())
     pk, vk = str(tmp_path / "pk"), str(tmp_path / "vk.json")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="bls12381 scalar field"):
         cli.main(["groth16_setup", "--circuit", files["r1cs"], "--pk", pk,
                   "--vk", vk, "--curve_type", "BLS12381", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -303,7 +303,7 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     b = _toy_circuit()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.groth16_setup_inplace("bn128", b)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="bls12381 scalar field"):
         api.groth16_setup_inplace("bls12381", b, device="cpu")
 
 

@@ -446,10 +446,15 @@ def test_kernel_build_recompiles_only_stale_sources(tmp_path):
     def build(force=False):
         return kernels.build(force, str(csrc), str(out), str(nvcc))
 
-    assert build()["compiled"] == ["a.cu", "b.cu", "c.cu"]
+    info = build()
+    assert info["compiled"] == ["a.cu", "b.cu", "c.cu"]
+    assert sorted(j["source"] for j in info["jobs"]) == info["compiled"]
+    assert all(0.0 <= j["seconds"] <= info["seconds"] and j["ptxas"] == []
+               for j in info["jobs"])
     lib = out / os.path.basename(kernels.LIB_PATH)
     assert lib.exists()
-    assert build() == {"seconds": 0.0, "compiled": [], "log": ""}
+    assert build() == {"seconds": 0.0, "compiled": [], "log": "",
+                       "jobs": []}
     (csrc / "b.cu").write_text("#include <cstdint>\n// edited\n")
     assert build()["compiled"] == ["b.cu"]
     (csrc / "h.cuh").write_text("// h, edited\n")
@@ -464,6 +469,26 @@ def test_kernel_build_recompiles_only_stale_sources(tmp_path):
         [lib.name, lib.name + ".stamp"]
         + [f"{s}.o{x}" for s in ("a.cu", "b.cu", "c.cu")
            for x in ("", ".stamp")])
+
+
+def test_ptxas_report_names_each_kernel():
+    """kernels.ptxas_report: ptxas's -v lines of one compile, each register
+    and spill line under the kernel it follows."""
+    from eigen_zkvm_tpu_torch import kernels
+
+    log = ("ptxas info    : 0 bytes gmem\n"
+           "ptxas info    : Compiling entry function '_Z1aPi' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1aPi\n"
+           "    912 bytes stack frame, 3776 bytes spill stores, 3776 bytes "
+           "spill loads\n"
+           "ptxas info    : Used 255 registers, used 0 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__d4e4be2d"
+           "_6_msm_cu_f421cf8317msm_digits_kernelEPKl' for 'sm_90a'\n"
+           "ptxas info    : Used 32 registers, used 0 barriers\n")
+    assert kernels.ptxas_report(log) == [
+        "_Z1aPi: 912 bytes stack frame, 3776 bytes spill stores, 3776 bytes "
+        "spill loads", "_Z1aPi: Used 255 registers, used 0 barriers",
+        "msm_digits_kernelEPKl: Used 32 registers, used 0 barriers"]
 
 
 def test_kernel_build_of_named_sources(tmp_path):
