@@ -219,6 +219,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
               constant and the quotient at 2^18; K4 on the prove's rows.
               These cases are the ones the kernels' line reports for the
               BLS12-381 kernels.
+ 15. bridge   the gnark bridge (recursion/gnark_bridge.py: a BN254 Groth16
+              proof verified inside a BLS12-381 circuit) at the part the
+              smoke has room for: bench_bridge.toy_inner's BN254 proof
+              (seeded draws, on the card), then bench_bridge.bridge_part
+              of it (build_verifier_circuit's calls up to the residue
+              check's c * c^-1 = 1, without B's on-curve and subgroup
+              checks and the Miller loop: BRIDGE_PART_CONSTRAINTS
+              constraints, domain 2^19) through groth16_setup_inplace,
+              groth16_prove_inplace and groth16_verify_inplace("bls12381",
+              ...) on the card: the BLS12-381 kernels launch, the verifier
+              accepts, a changed public is rejected, and the proof JSON's
+              sha256 must equal BRIDGE_PART_SHA256, the host engine's
+              digest of the same composition built from the JAX package's
+              modules.  Then K3 at the full bridge's domain, 2^23 (three
+              passes of fr_ntt_pass), forward, inverse and the coset round
+              trip against ntt_plain, exactly.  The full bridge (about
+              7.84 M constraints) is bench_bridge's.
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -233,7 +250,8 @@ each of phase 10's five layers, the NTT and Poseidon-Fr in phase 11's
 final layer, K2 in its Groth16 setup and K1, K3 and K4 in its prove, K2
 in phase 12's Groth16 setup, K1, K3 and K4 in its prove and the NTT and
 Poseidon in its compressor prove, the NTT and Poseidon in phase 13's
-transfer prove, the BLS12-381 kernels in phase 14's setup and prove.
+transfer prove, the BLS12-381 kernels in phase 14's setup and prove and
+in phase 15's.
 The kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr
 phase 9's and 11's final layer's, the Groth16 kernels phase 11's wrap's,
 the BLS12-381 instances phase 14's.
@@ -485,6 +503,20 @@ GUESTS_SHA256 = (
 # test_host_engine_gives_the_pinned_bls_digest recomputes it.
 BLS_GROTH16_HOST_SHA256 = \
     "3cf996ffbaee9f47a9999f88bc5e4490a985fd37691c5afede669c36d6b67284"
+# Phase 15: bench_bridge.bridge_part (the gnark bridge's calls up to the
+# residue check's c * c^-1 = 1, without B's checks and the Miller loop) of
+# bench_bridge.toy_inner's BN254 proof, BRIDGE_PART_CONSTRAINTS
+# constraints over BLS12-381's r (domain 2^19), setup drawing from
+# seeded(bench_bridge.OUTER_SEED), the prove from seeded(OUTER_SEED + 1).
+# The digest is the proof JSON's sha256 that eigen_zkvm_tpu's host engine
+# writes for the same composition built from the JAX package's modules;
+# tests/test_torch_gnark_bridge.py::
+# test_host_engine_gives_the_pinned_bridge_part_digest recomputes it.
+BRIDGE_PART_CONSTRAINTS = 387_100
+BRIDGE_PART_SHA256 = \
+    "db73a58f797af4c1ad738695527bf50c295cb726ea5aa871a00f33dbbb595969"
+# the Fr transforms held at the full bridge's domain: three passes
+BRIDGE_NTT_BITS = 23
 # K1's double-and-add holds in phase 14: launch-bound (255 rounds of
 # batched point formulas whatever n), so n is cut to 2^13 points
 BLS_CHECK_N = 1 << 13
@@ -1897,6 +1929,90 @@ def _check_bls_kernels(dev, rng, circ, pk) -> dict:
             kernels.R1CS_BLS.name: k4_cases}
 
 
+def _bridge(dev) -> dict:
+    """Phase 15: bench_bridge.toy_inner's BN254 proof on the card, then
+    bench_bridge.bridge_part of it through groth16_setup_inplace,
+    groth16_prove_inplace and groth16_verify_inplace("bls12381", ...), the
+    kernels' counts set to 0 before setup and read after verify; then the
+    verify of a changed public."""
+    from eigen_zkvm_tpu_torch import bench_bridge as bb
+    from eigen_zkvm_tpu_torch import bench_groth16 as bg
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.curves import bls12_381
+    from eigen_zkvm_tpu_torch.groth16 import api
+    from eigen_zkvm_tpu_torch.utils.profiler import Prof
+
+    import torch
+
+    t0 = time.perf_counter()
+    inner = bb.toy_inner(dev)
+    t1 = time.perf_counter()
+    circ = bb.bridge_part(*inner)
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    setup_prof = Prof("groth16.setup", dev, on=True)
+    pk, vk = api.groth16_setup_inplace("bls12381", circ,
+                                       rng=bg.seeded(bb.OUTER_SEED),
+                                       device=dev, prof=setup_prof)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    prof = Prof("groth16.prove", dev, on=True)
+    proof, pubs = api.groth16_prove_inplace(
+        "bls12381", circ, pk, rng=bg.seeded(bb.OUTER_SEED + 1), prof=prof)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    ok = api.groth16_verify_inplace("bls12381", vk, proof, pubs)
+    t5 = time.perf_counter()
+    launches = kernels.counts()
+    changed = [(pubs[0] + 1) % bls12_381.R] + list(pubs[1:])
+    rejected = not api.groth16_verify_inplace("bls12381", vk, proof, changed)
+    text = api.proof_to_json(proof, "bls12381").encode()
+    return dict(inner_s=t1 - t0, build_s=t2 - t1, setup_s=t3 - t2,
+                prove_s=t4 - t3, verify_s=t5 - t4,
+                changed_verify_s=time.perf_counter() - t5,
+                setup_stages=setup_prof.stages, stages=prof.stages,
+                constraints=len(circ.constraints), n_vars=circ.n_vars,
+                domain=pk.domain_size, verified=ok,
+                tampered_rejected=rejected, launches=launches,
+                peak_bytes=torch.cuda.max_memory_allocated(dev),
+                proof_sha256=hashlib.sha256(text).hexdigest())
+
+
+def _check_bridge_kernels(dev) -> list:
+    """Phase 15's holds: K3 at the full bridge's domain 2^BRIDGE_NTT_BITS
+    (fr_ntt.plan's three passes) over BLS12-381's r, forward, inverse and
+    the coset round trip, against ntt_plain's radix-2 ladder (one call
+    each), exactly; values below 2^254 made on the card (0, 1, 2 and r - 1
+    first, every fourth of the rest 0), canonical, so Montgomery words."""
+    from eigen_zkvm_tpu_torch.curves import bls12_381
+    from eigen_zkvm_tpu_torch.ops import bigint as bi
+    from eigen_zkvm_tpu_torch.ops import fr_ntt
+
+    F, L = bi.FR_BLS, BRIDGE_NTT_BITS
+    m = 1 << L
+    x = _random_scalars(dev, m, 15, bls12_381.R)
+    prods = (m // 2) * L * IMAD_BN254
+    passes = fr_ntt.plan(L)
+    cases = [
+        _hold(f"fr_ntt Fr381 2^{L} (the bridge's domain; passes {passes})",
+              lambda: fr_ntt.ntt(x, L, field=F),
+              lambda: fr_ntt.ntt_plain(x, L, field=F), 5, 0, 64 * m, prods),
+        _hold(f"fr_ntt Fr381 inverse 2^{L}",
+              lambda: fr_ntt.ntt(x, L, inverse=True, field=F),
+              lambda: fr_ntt.ntt_plain(x, L, inverse=True, field=F), 5, 0,
+              64 * m, prods),
+        _hold(f"fr Fr381 coset round trip 2^{L} (to_coset, from_coset)",
+              lambda: fr_ntt.from_coset(fr_ntt.to_coset(x, L, field=F), L,
+                                        field=F),
+              lambda: fr_ntt.from_coset_plain(
+                  fr_ntt.to_coset_plain(x, L, field=F), L, field=F), 5, 0,
+              64 * m, 3 * prods + 2 * m * IMAD_BN254)]
+    del x
+    return cases
+
+
 def main() -> int:
     t_start = time.perf_counter()
     os.environ.setdefault("EIGEN_ZKVM_SYNC", "1")
@@ -2397,14 +2513,60 @@ def main() -> int:
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
 
+    # 15. the gnark bridge's part: a BN254 proof's verifier over BLS12-381
+    t0 = time.perf_counter()
+    print("bridge: bench_bridge.bridge_part of a BN254 Groth16 proof, "
+          "proved with BLS12-381 Groth16 on the card:", flush=True)
+    try:
+        b15 = _bridge(dev)
+    except (RuntimeError, AssertionError, ValueError) as e:
+        return _fail(f"the bridge phase failed: {e!r}")
+    report["bridge"] = b15
+    print(f"  bridge_part: {b15['constraints']} constraints, "
+          f"{b15['n_vars']} wires, domain 2^{b15['domain'].bit_length() - 1}"
+          f"; inner proof {b15['inner_s']:.3f} s, circuit "
+          f"{b15['build_s']:.3f} s, setup {b15['setup_s']:.3f} s, prove "
+          f"{b15['prove_s']:.3f} s, verify {b15['verify_s']:.3f} s "
+          f"({b15['verified']}), a changed public rejected "
+          f"{b15['tampered_rejected']} ({b15['changed_verify_s']:.3f} s); "
+          f"peak device memory {b15['peak_bytes'] / 2**30:.3f} GiB; "
+          f"launches {b15['launches']}", flush=True)
+    for stage, sec in b15["setup_stages"] + b15["stages"]:
+        print(f"    {stage}: {sec:.3f} s")
+    print(f"  proof sha256 {b15['proof_sha256']}; equal to the host "
+          f"engine's: {b15['proof_sha256'] == BRIDGE_PART_SHA256}",
+          flush=True)
+    if not (b15["verified"] and b15["tampered_rejected"]):
+        return _fail("the bridge part's proof does not verify, or a changed "
+                     "public verifies")
+    if any(b15["launches"][k.name] == 0 for k in bls_kernels):
+        return _fail(f"a BLS12-381 kernel never launched in the bridge "
+                     f"phase: {b15['launches']}")
+    if b15["constraints"] != BRIDGE_PART_CONSTRAINTS \
+            or b15["proof_sha256"] != BRIDGE_PART_SHA256:
+        return _fail("the bridge part's circuit or proof differs from the "
+                     "host engine's")
+    t1 = time.perf_counter()
+    cases[kernels.FR_NTT_BLS.name] = cases[kernels.FR_NTT_BLS.name] + \
+        _check_bridge_kernels(dev)
+    report["bridge_holds_s"] = time.perf_counter() - t1
+    report["bridge_s"] = time.perf_counter() - t0
+    print(f"bridge: {report['bridge_s']:.1f} s (the holds "
+          f"{report['bridge_holds_s']:.1f} s)", flush=True)
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks
     if any(c["err"] != 0.0 for c in checks):
         return _fail("a kernel disagrees with its plain version at the "
                      "zkVM path's, the big-field proves', the recursion "
-                     "layers', the wrap's, the compiled circuit's or the "
-                     "BLS12-381 phase's shapes")
+                     "layers', the wrap's, the compiled circuit's, the "
+                     "BLS12-381 phase's or the bridge's shapes")
 
     report["smoke_s"] = time.perf_counter() - t_start
     print(f"smoke: {report['smoke_s']:.1f} s, kernel build included")

@@ -12,11 +12,13 @@ Commands:
   groth16_setup       circuit-specific SNARK setup -> pk file / vk json
   groth16_prove       SNARK proof of a circuit and its witness
   groth16_verify      verify a SNARK proof json
+  bls_wrap            wrap a BN254 Groth16 proof into a BLS12-381 one (the
+                      gnark bridge: its verifier circuit, proved)
   generate_verifier   render the Solidity verifier from a vk json
   compile             compile a circom source (supported subset) to
                       .r1cs/.wtns/.sym
 
-The flags, names and output files are the JAX package's, with three
+The flags, names and output files are the JAX package's, with four
 differences:
   - groth16_setup and groth16_prove take --circuit as a circom .r1cs file,
     not a pickle, and groth16_prove takes --witness (.wtns or a JSON list),
@@ -25,6 +27,8 @@ differences:
     default, or BLS12381);
   - --pk is the port's proving-key file (groth16/api.py, save_pk /
     load_pk), not a pickle;
+  - bls_wrap's --reuse_setup keeps the outer key in output_dir as the
+    port's key file (wrap_pk.bin, beside wrap_vk.json), not as a pickle;
   - compressor12_setup keeps, beside the .pil.json, `<pil>.setup.pkl`: the
     inner proof's starkinfo, program and const root (host objects, no
     tensor), its starkStruct and the circuit options, which
@@ -38,8 +42,8 @@ hash on the Poseidon-over-Fr kernel, csrc/poseidon_fr.cu).  stark_prove's
 --norm_stage is off unless given, so the const root is a constant of the
 text by default.
 stark_prove, stark_verify, compressor12_setup (for the inner const tree),
-groth16_setup and groth16_prove run on the current CUDA device and raise
-without one; their --device flag is for the
+groth16_setup, groth16_prove and bls_wrap run on the current CUDA device
+and raise without one; their --device flag is for the
 tests (--device cpu runs the kernels' plain versions).  groth16_verify,
 compressor12_exec, join_zkin, generate_verifier and compile are host work.
 `main` returns the exit code: 1 when a verifier rejects.
@@ -259,6 +263,70 @@ def _cmd_groth16_verify(args) -> int:
     return 0 if ok else 1
 
 
+def _cmd_bls_wrap(args) -> int:
+    """Wrap a BN254 Groth16 proof into a BLS12-381 Groth16 proof (the
+    reference's gnark bridge: recursion-gnark/cli/src/main.rs:32-46,
+    ffi/go/eigen/recursion.go:30-82): the inner proof's verifier circuit
+    over BLS12-381's r (recursion/gnark_bridge.py), its setup or the key
+    kept in output_dir, the prove, a verify of it, then wrap_vk.json,
+    wrap_proof.json and wrap_public.json."""
+    import os
+
+    from .groth16 import groth16 as core
+    from .groth16.api import (_same_curve, load_pk, proof_from_json,
+                              proof_to_json, publics_from_json,
+                              publics_to_json, save_pk, vk_from_json,
+                              vk_to_json)
+    from .recursion.gnark_bridge import build_verifier_circuit
+    from .utils.profiler import Prof
+
+    dev = core.resolve_device(args.device)
+    prof = args.prof or Prof("cli.bls_wrap", dev)
+    with open(args.vk) as f:
+        ivk = vk_from_json(f.read())
+    _same_curve("bn128", ivk.curve_name)
+    with open(args.proof) as f:
+        iproof = proof_from_json(f.read())
+    with open(args.public_input) as f:
+        ipubs = publics_from_json(f.read())
+    prof.tick("load inner")
+    bc = build_verifier_circuit(ivk, iproof, ipubs)
+    prof.tick("build")
+    print(f"bls_wrap: verifier circuit {len(bc.constraints)} constraints")
+    os.makedirs(args.output_dir, exist_ok=True)
+    pk_path = os.path.join(args.output_dir, "wrap_pk.bin")
+    vk_path = os.path.join(args.output_dir, "wrap_vk.json")
+    if args.reuse_setup and os.path.exists(pk_path) \
+            and os.path.exists(vk_path):
+        opk = load_pk(pk_path, dev)
+        with open(vk_path) as f:
+            ovk = vk_from_json(f.read())
+        _same_curve("bls12381", opk.curve_name)
+        if (opk.n_vars, opk.n_public) != (bc.n_vars, bc.n_publics):
+            raise ValueError(f"{pk_path} is a key for another circuit")
+        prof.tick("load pk")
+    else:
+        opk, ovk = core.setup(bc.constraints, bc.n_vars, bc.n_publics,
+                              rng=args.rng, device=dev, prof=prof,
+                              curve="bls12381")
+        if args.reuse_setup:
+            save_pk(pk_path, opk)
+            prof.tick("save pk")
+    oproof, opubs = core.prove(opk, bc.constraints, bc.w, rng=args.rng,
+                               prof=prof)
+    if not core.verify(ovk, oproof, opubs):
+        raise RuntimeError("bls_wrap: the outer proof does not verify")
+    prof.tick("verify")
+    with open(vk_path, "w") as f:
+        f.write(vk_to_json(ovk))
+    with open(os.path.join(args.output_dir, "wrap_proof.json"), "w") as f:
+        f.write(proof_to_json(oproof, "bls12381"))
+    with open(os.path.join(args.output_dir, "wrap_public.json"), "w") as f:
+        f.write(publics_to_json(opubs))
+    print(f"bls_wrap -> {args.output_dir}/wrap_{{vk,proof,public}}.json")
+    return 0
+
+
 def _cmd_generate_verifier(args) -> int:
     from .groth16.api import generate_verifier
 
@@ -323,10 +391,13 @@ def _device_flag(p):
                         "versions (default: the current CUDA device)")
 
 
-def main(argv=None, prof=None) -> int:
+def main(argv=None, prof=None, rng=None) -> int:
     """Run one command; returns its exit code.  `prof` (utils/profiler.Prof)
-    receives stark_prove's and groth16_prove's stage ticks (groth16_prove:
-    the file loads, then the prover's own)."""
+    receives stark_prove's, groth16_prove's and bls_wrap's stage ticks
+    (groth16_prove: the file loads, then the prover's own; bls_wrap: the
+    inner files' load, the circuit's build, setup's, prove's, the verify).
+    `rng` is the source of bls_wrap's setup and prove draws, setup first
+    (None: `secrets`, as the JAX CLI draws)."""
     ap = argparse.ArgumentParser(prog="eigen-zkit (PyTorch/CUDA port)",
                                  description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -412,6 +483,17 @@ def main(argv=None, prof=None) -> int:
     p.add_argument("--public_input", required=True)
     p.set_defaults(func=_cmd_groth16_verify)
 
+    p = sub.add_parser("bls_wrap", help="wrap a BN254 Groth16 proof into a "
+                       "BLS12-381 Groth16 proof (gnark-bridge equivalent)")
+    p.add_argument("--vk", required=True)
+    p.add_argument("--proof", required=True)
+    p.add_argument("--public_input", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--reuse_setup", action="store_true",
+                   help="cache/reuse the outer setup in output_dir")
+    _device_flag(p)
+    p.set_defaults(func=_cmd_bls_wrap)
+
     p = sub.add_parser("generate_verifier")
     p.add_argument("--vk", required=True)
     p.add_argument("--sol", required=True)
@@ -432,6 +514,7 @@ def main(argv=None, prof=None) -> int:
 
     args = ap.parse_args(argv)
     args.prof = prof
+    args.rng = rng
     return args.func(args)
 
 

@@ -303,8 +303,15 @@ def g1_to_affine(p):
     return (p[0] * zi2 % P, p[1] * zi2 * zi % P)
 
 
+def g1_is_on_curve(a) -> bool:
+    if a is None:
+        return True
+    return (a[1] * a[1] - a[0] ** 3 - B) % P == 0
+
+
 # ---- G2 (Jacobian over Fq2, twist curve y^2 = x^3 + b/xi) ----
 
+B2 = f2_mul((B, 0), f2_inv(XI))
 G2_ZERO = (F2_ONE, F2_ONE, F2_ZERO)
 
 
@@ -356,6 +363,10 @@ def g2_add(p, q):
     return (X3, Y3, Z3)
 
 
+def g2_neg(p):
+    return (p[0], f2_neg(p[1]), p[2])
+
+
 def g2_mul(p, k: int):
     k %= R
     res = G2_ZERO
@@ -379,6 +390,12 @@ def g2_to_affine(p):
     zi = f2_inv(p[2])
     zi2 = f2_sq(zi)
     return (f2_mul(p[0], zi2), f2_mul(p[1], f2_mul(zi2, zi)))
+
+
+def g2_is_on_curve(a) -> bool:
+    if a is None:
+        return True
+    return f2_sub(f2_sq(a[1]), f2_add(f2_mul(f2_sq(a[0]), a[0]), B2)) == F2_ZERO
 
 
 def g1_to_affine_all(points) -> list:
