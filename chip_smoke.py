@@ -236,6 +236,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               passes of fr_ntt_pass), forward, inverse and the coset round
               trip against ntt_plain, exactly.  The full bridge (about
               7.84 M constraints) is bench_bridge's.
+ 16. sharded  the multi-rank prover (eigen_zkvm_tpu_torch/parallel/): first
+              the NTT and Poseidon at a rank's local shapes (a pol block's
+              LDE [2^20, 2] -> [2^21, 2], a row block's leaves [2^19, 8],
+              the first level of its subtree, the top fold over the four
+              sub-roots) against their plain versions, exactly; then
+              four ranks spawned on this card over gloo (every collective
+              staged through host buffers; the kernels built in phase 2)
+              prove phase 4's files through sharded_prove: each rank's
+              proof JSON sha256 must be HOST_PROOF_SHA256, rank 0's proof
+              must verify, and both GL kernels must launch on every rank;
+              then make_sharded_commit on a (2, 2) grid over two seeded
+              2^20 x 8 traces, its roots equal to the single-device
+              extend_and_merkelize roots.  Prints the phase's seconds, the
+              stage walls, the collectives' calls, seconds and bytes, and
+              each rank's peak device memory.
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -251,7 +266,7 @@ final layer, K2 in its Groth16 setup and K1, K3 and K4 in its prove, K2
 in phase 12's Groth16 setup, K1, K3 and K4 in its prove and the NTT and
 Poseidon in its compressor prove, the NTT and Poseidon in phase 13's
 transfer prove, the BLS12-381 kernels in phase 14's setup and prove and
-in phase 15's.
+in phase 15's, the GL kernels on every rank of phase 16.
 The kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr
 phase 9's and 11's final layer's, the Groth16 kernels phase 11's wrap's,
 the BLS12-381 instances phase 14's.
@@ -521,6 +536,10 @@ BRIDGE_NTT_BITS = 23
 # batched point formulas whatever n), so n is cut to 2^13 points
 BLS_CHECK_N = 1 << 13
 LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
+# Phase 16: four gloo ranks on this card prove phase 4's files sharded,
+# then run make_sharded_commit on a (2, 2) grid over COMMIT_BATCH seeded
+# traces of phase 4's shape
+SHARDS, COMMIT_GRID, COMMIT_BATCH, COMMIT_SEED = 4, (2, 2), 2, 16
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 # Fewest IMADs (IMAD.WIDE.U32, a 32x32->64-bit multiply-add) for one
@@ -1929,6 +1948,100 @@ def _check_bls_kernels(dev, rng, circ, pk) -> dict:
             kernels.R1CS_BLS.name: k4_cases}
 
 
+def _fold_plain(digs):
+    """poseidon.fold_root_pow2 with every level on hash_n_plain."""
+    from eigen_zkvm_tpu_torch.ops import poseidon
+
+    while digs.shape[-2] > 1:
+        digs = poseidon.hash_n_plain(digs.reshape(-1, 8)).reshape(
+            *digs.shape[:-2], digs.shape[-2] // 2, 4)
+    return digs[..., 0, :]
+
+
+def _check_sharded_kernels(dev, rng) -> dict:
+    """Phase 16: the NTT and Poseidon-GL at the local shapes a rank of the
+    four-rank sharded prove gives them (2^20 x 8: a pol block's LDE, a row
+    block's leaves, the first level of the block's subtree, the top fold
+    over the four sub-roots), against their plain versions."""
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.ops import ntt, poseidon
+    import numpy as np
+
+    edge = _edge_states(np)
+
+    def rand(*shape, edge_rows=None):
+        return _rand(rng, dev, shape, edge_rows)
+
+    n, ext = 1 << NBITS, NBITS + 1
+    w_l, r_l = WIDTH // SHARDS, (2 * n) // SHARDS
+    x = rand(n, w_l)
+    ntt_cases = [_hold(
+        f"ntt sharded pol block [2^{NBITS},{w_l}]->[2^{ext},{w_l}]",
+        lambda: ntt.interpolate(x, NBITS, ext),
+        lambda: ntt.interpolate_plain(x, NBITS, ext), 10, 0,
+        8 * w_l * 3 * n,
+        _ntt_imads(NBITS, w_l, True) + _ntt_imads(ext, w_l, False))]
+    del x
+    rows = rand(r_l, WIDTH, edge_rows=edge[:, :8])
+    level = rand(r_l // 2, 8, edge_rows=edge[:, :8])
+    tops = rand(SHARDS, 4)
+    lg = r_l.bit_length() - 1
+    pos_cases = [
+        _hold(f"poseidon sharded row block leaves [2^{lg},{WIDTH}]",
+              lambda: poseidon.hash_leaves(rows, WIDTH),
+              lambda: poseidon.hash_leaves_plain(rows, WIDTH), 10, 0,
+              8 * (rows.numel() + r_l * 4),
+              POSEIDON_IMADS * _leaf_perms(WIDTH) * r_l),
+        _hold(f"poseidon sharded subtree level [2^{lg - 1},8]",
+              lambda: poseidon.hash_n(level),
+              lambda: poseidon.hash_n_plain(level), 10, 0,
+              8 * (level.numel() + level.shape[0] * 4),
+              POSEIDON_IMADS * level.shape[0]),
+        _hold(f"poseidon sharded top fold [{SHARDS},4]",
+              lambda: poseidon.fold_root_pow2(tops),
+              lambda: _fold_plain(tops), 10, 0, 8 * (tops.numel() + 4),
+              POSEIDON_IMADS * (SHARDS - 1))]
+    return {kernels.NTT.name: ntt_cases, kernels.POSEIDON.name: pos_cases}
+
+
+def _sharded(dev, files: dict) -> dict:
+    """Phase 16: SHARDS ranks on this card over gloo (parallel/launch.py;
+    the kernels already built, each rank loads them): phase 4's files
+    through sharded_prove, then make_sharded_commit on a COMMIT_GRID grid
+    against the single-device extend_and_merkelize roots of the same
+    traces.  Returns the phase's record."""
+    import numpy as np
+    import torch
+
+    from eigen_zkvm_tpu_torch import bench_sharded
+    from eigen_zkvm_tpu_torch.parallel import launch
+
+    torch.cuda.empty_cache()   # the ranks share this card
+    t0 = time.perf_counter()
+    want = bench_sharded.commit_reference(COMMIT_SEED, COMMIT_BATCH, NBITS,
+                                          WIDTH, dev)
+    rec = {"reference_s": time.perf_counter() - t0}
+    with launch.RankPool(SHARDS, "gloo", device=str(dev)) as pool:
+        rec["pool_up_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        recs = pool.run(bench_sharded.prove_files, files, 1, True, None)
+        rec["prove"] = bench_sharded.summarise("gloo", "gloo", recs,
+                                               time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        commits = pool.run(bench_sharded.commit_traces, COMMIT_SEED,
+                           COMMIT_BATCH, NBITS, WIDTH, data=COMMIT_GRID[0])
+        rec["commit_s"] = time.perf_counter() - t1
+    b_l = COMMIT_BATCH // COMMIT_GRID[0]
+    rec["commit_roots_equal"] = all(np.array_equal(
+        c["roots"], want[c["coords"][0] * b_l : (c["coords"][0] + 1) * b_l])
+        for c in commits)
+    rec["commit_launches"] = [c["launches"] for c in commits]
+    rec["commit_collectives"] = commits[0]["collectives"]
+    rec["commit_peak_bytes"] = [c["peak_bytes"] for c in commits]
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def _bridge(dev) -> dict:
     """Phase 15: bench_bridge.toy_inner's BN254 proof on the card, then
     bench_bridge.bridge_part of it through groth16_setup_inplace,
@@ -2100,24 +2213,25 @@ def main() -> int:
         return _fail("a kernel disagrees with its plain version")
 
     # 4. the main path: the port's file-based stark_prove, self-verifying
-    with tempfile.TemporaryDirectory() as tmp:
-        files = bench_chain.write_chain_files(tmp, NBITS, WIDTH, QUERIES)
-        zkin = os.path.join(tmp, "proof.json")
-        prof = Prof("stark_gen", dev, on=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        try:
-            stark_prove(files["stark_struct"], files["pil"], files["const"],
-                        files["cm"], zkin_out=zkin, device=dev, prof=prof)
-        except RuntimeError as e:
-            return _fail(f"the port's prove failed: {e}")
-        torch.cuda.synchronize()
-        t_total = time.perf_counter() - t0
-        launches = kernels.counts()
-        with open(zkin, "rb") as f:
-            proof_json = f.read()
+    chain_dir = tempfile.TemporaryDirectory()   # phase 16 reuses its files
+    tmp = chain_dir.name
+    files = bench_chain.write_chain_files(tmp, NBITS, WIDTH, QUERIES)
+    zkin = os.path.join(tmp, "proof.json")
+    prof = Prof("stark_gen", dev, on=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        stark_prove(files["stark_struct"], files["pil"], files["const"],
+                    files["cm"], zkin_out=zkin, device=dev, prof=prof)
+    except RuntimeError as e:
+        return _fail(f"the port's prove failed: {e}")
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    launches = kernels.counts()
+    with open(zkin, "rb") as f:
+        proof_json = f.read()
     peak = torch.cuda.max_memory_allocated(dev)
     t_gen = sum(sec for st, sec in prof.stages if st != "load + setup")
     digest = hashlib.sha256(proof_json).hexdigest()
@@ -2559,6 +2673,48 @@ def main() -> int:
     if foreign:
         return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
 
+    # 16. sharded: phase 4's chain AIR over four gloo ranks on this card
+    print(f"sharded: phase 4's files through sharded_prove on {SHARDS} gloo "
+          f"ranks on this card, then make_sharded_commit on a "
+          f"{COMMIT_GRID} grid:", flush=True)
+    from eigen_zkvm_tpu_torch import bench_sharded
+
+    t0 = time.perf_counter()
+    try:
+        shard_cases = _check_sharded_kernels(dev, rng)
+        s16 = _sharded(dev, files)
+    except (RuntimeError, ValueError) as e:   # launch.RankError included
+        return _fail(f"the sharded phase failed: {e!r}")
+    chain_dir.cleanup()
+    for name, cs in shard_cases.items():
+        cases[name] = cases[name] + cs
+    sp = s16["prove"]
+    report["sharded"] = s16
+    report["sharded_s"] = time.perf_counter() - t0
+    print(f"  ranks up {s16['pool_up_s']:.1f} s (the single-device commit "
+          f"reference {s16['reference_s']:.1f} s of it)", flush=True)
+    bench_sharded.print_config(NBITS, WIDTH, sp)
+    print(f"  proof sha256 equal to the host engine's: "
+          f"{sp['sha256'] == [HOST_PROOF_SHA256]}")
+    print(f"  make_sharded_commit {COMMIT_GRID}, {COMMIT_BATCH} traces of "
+          f"2^{NBITS} x {WIDTH}: {s16['commit_s']:.3f} s with the task's "
+          f"queueing; roots equal to the single-device extend_and_merkelize "
+          f"roots: {s16['commit_roots_equal']}; collectives (rank 0): "
+          f"{bench_sharded.collectives_line(s16['commit_collectives'])}"
+          f"; peak device memory by rank, GiB: "
+          + ", ".join(f"{p / 2**30:.3f}" for p in s16["commit_peak_bytes"]))
+    print(f"sharded: {report['sharded_s']:.1f} s", flush=True)
+    if sp["sha256"] != [HOST_PROOF_SHA256] or not sp["verified"]:
+        return _fail("the sharded proof differs from the host engine's or "
+                     "does not verify")
+    if not s16["commit_roots_equal"]:
+        return _fail("the sharded commit's roots differ from the "
+                     "single-device roots")
+    if any(lc[k.name] == 0 for lc in sp["launches"] + s16["commit_launches"]
+           for k in gl_kernels):
+        return _fail(f"a GL kernel never launched on a rank of the sharded "
+                     f"phase: {sp['launches']}, {s16['commit_launches']}")
+
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks
@@ -2566,7 +2722,8 @@ def main() -> int:
         return _fail("a kernel disagrees with its plain version at the "
                      "zkVM path's, the big-field proves', the recursion "
                      "layers', the wrap's, the compiled circuit's, the "
-                     "BLS12-381 phase's or the bridge's shapes")
+                     "BLS12-381 phase's, the bridge's or the sharded "
+                     "prove's shapes")
 
     report["smoke_s"] = time.perf_counter() - t_start
     print(f"smoke: {report['smoke_s']:.1f} s, kernel build included")

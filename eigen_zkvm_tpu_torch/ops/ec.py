@@ -181,9 +181,12 @@ def dbl(g: Group, p):
     return X3, Y3, g.add(YZ, YZ)
 
 
-def add(g: Group, p, q):
+def add(g: Group, p, q, check: bool = True):
     """Complete Jacobian addition (add-2007-bl with the exceptional cases
-    patched as ec_jax._add does)."""
+    patched as ec_jax._add does).  `check` reads on the host whether any
+    lane adds a point to itself and skips the doubling when none does;
+    without it the doubling is always computed (no host read, as a
+    captured CUDA graph needs; the same result)."""
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
     Z1Z1, Z2Z2, t1, t2 = _muls(g, (Z1, Z1), (Z2, Z2), (Y1, Z2), (Y2, Z1))
@@ -204,7 +207,7 @@ def add(g: Group, p, q):
     # H = 0, r != 0 (P + (-P)): Z3 = 0 already, infinity
     i1, i2 = g.is_zero(Z1), g.is_zero(Z2)
     same = h_zero & r_zero & ~i1 & ~i2
-    if bool(same.any()):
+    if not check or bool(same.any()):
         d = dbl(g, p)
         X3, Y3, Z3 = (bi.select(same, dv, v) for dv, v in zip(d, (X3, Y3, Z3)))
     return tuple(bi.select(i1, b2, bi.select(i2, b1, v))
@@ -730,25 +733,71 @@ def msm_plain(g: Group, points: torch.Tensor, scalars: torch.Tensor
     """Plain version of the MSM on any device, independent of Pippenger's
     glue: ec_jax._msm_core's bit-plan double-and-add (each lane adds its
     base where its scalar's bit is set, then doubles the base), then the
-    lanes summed pairwise (_tree_reduce).  Affine words [1, 2, ...]."""
+    lanes summed pairwise (_tree_reduce).  Affine words [1, 2, ...].  On a
+    CUDA device with at most GRAPH_LANES lanes the rounds replay one
+    captured round (`_rounds_on_a_graph`)."""
     points, scalars = _check_msm(g, points, scalars)
     if points.shape[0] == 0:
         return torch.zeros((1, 2, *g.coord_shape), dtype=torch.int64,
                            device=points.device)
-    bits = digits(scalars, 1, g.nbits)
+    bits = digits(scalars, 1, g.nbits) == 1
     top = torch.nonzero(bits.any(0))
+    rounds = int(top.max()) + 1 if top.numel() else 0
     base = from_affine(g, points)
     acc = tuple(torch.zeros_like(v) for v in base)     # Z = 0: infinity
-    for k in range(int(top.max()) + 1 if top.numel() else 0):
-        z = bi.select(bits[:, k] == 1, base[2], torch.zeros_like(base[2]))
-        acc = add(g, acc, (base[0], base[1], z))
-        base = dbl(g, base)
+    if points.is_cuda and rounds and points.shape[0] <= GRAPH_LANES:
+        acc = _rounds_on_a_graph(g, acc, base, bits, rounds)
+    else:
+        for k in range(rounds):
+            acc, base = _bit_round(g, acc, base, bits[:, k])
     while acc[0].shape[0] > 1:
         if acc[0].shape[0] % 2:
             acc = tuple(torch.cat([v, torch.zeros_like(v[:1])]) for v in acc)
         acc = add(g, tuple(v[0::2] for v in acc),
                   tuple(v[1::2] for v in acc))
     return to_affine(g, acc)
+
+
+# Up to this many lanes a round of msm_plain on the card is bound by its
+# launches, and a graph replay of it is faster (2^13 lanes: 2.3-2.6x on an
+# H100); at 2^16 its device time binds, and the replay's unconditional
+# doubling makes it no faster (0.9-1.1x).
+GRAPH_LANES = 1 << 14
+
+
+def _bit_round(g: Group, acc, base, bit, check: bool = True):
+    """One round of msm_plain: each lane adds its base where its bit is
+    set, and the bases double."""
+    z = bi.select(bit, base[2], torch.zeros_like(base[2]))
+    return add(g, acc, (base[0], base[1], z), check), dbl(g, base)
+
+
+def _rounds_on_a_graph(g: Group, acc, base, bits, rounds: int):
+    """msm_plain's rounds on a CUDA device: one round captured as a CUDA
+    graph (`add` without its host check) and replayed `rounds` times, bit
+    column k copied into the graph's input first: the eager loop's
+    operations without their launch cost, thousands a round."""
+    state = [v.clone() for v in acc + base]
+    bit = bits[:, 0].clone()
+
+    def one_round():
+        a, b = _bit_round(g, tuple(state[:3]), tuple(state[3:]), bit,
+                          check=False)
+        return a + b
+
+    side = torch.cuda.Stream(bit.device)
+    side.wait_stream(torch.cuda.current_stream(bit.device))
+    with torch.cuda.stream(side):
+        one_round()   # warm-up: the cached constants exist before capture
+    torch.cuda.current_stream(bit.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for s, v in zip(state, one_round()):
+            s.copy_(v)
+    for k in range(rounds):
+        bit.copy_(bits[:, k])
+        graph.replay()
+    return tuple(state[:3])
 
 
 # ---- fixed-base batch ----

@@ -2,7 +2,8 @@
 
 Port of the F3 products of eigen_zkvm_tpu/ops/vm_jax.py (`_f3_mul`,
 `_f3_inv`) and ops/fri_jax.py, with fields/f3g.py's `mul_base` and
-`prefix_product`.  An element is the last axis (size 3) of an int64 tensor
+`prefix_product` (and its distributed scan over a mesh's row blocks,
+`prefix_product_sharded`).  An element is the last axis (size 3) of an int64 tensor
 of u64 bit patterns (ops/gl.py); base-field values embed as (v, 0, 0).
 Every result is canonical, so every implementation agrees bit for bit.
 
@@ -103,6 +104,23 @@ def prefix_product(a):
         out[shift:] = mul(out[shift:], out[:-shift])
         shift <<= 1
     return out
+
+
+def prefix_product_sharded(a, mesh):
+    """prefix_product of a row-sharded column (a: this rank's block, [R,
+    3]): (this block of the whole column's inclusive product, the
+    exclusive product of the earlier blocks, the whole column's product).
+    Each rank scans its block, one all_gather brings every block's total,
+    and the block is multiplied by the product of the earlier totals."""
+    acc = prefix_product(a)
+    totals = mesh.all_gather(acc[-1])          # [model, 3]
+    before = from_ints(ONE_INT, a.device)
+    for j in range(mesh.coords[1]):
+        before = mul(before, totals[j])
+    total = before
+    for j in range(mesh.coords[1], mesh.model):
+        total = mul(total, totals[j])
+    return mul(acc, before[None, :]), before, total
 
 
 def from_ints(v, device=None) -> torch.Tensor:

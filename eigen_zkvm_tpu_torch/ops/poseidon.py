@@ -8,7 +8,8 @@ bit-exact with hash/poseidon.py and eigen_zkvm_tpu/hash/linearhash_gl.py.
 
 `permute` and `hash_n` launch the kernel for CUDA tensors and run the plain
 version (`permute_plain`, `hash_n_plain`) for CPU tensors.  A Merkle level
-is `hash_n` over the level viewed as [n/2, 8] with zero capacity.
+is `hash_n` over the level viewed as [n/2, 8] with zero capacity
+(`fold_root_pow2` folds a power-of-two batch of digests so).
 """
 from __future__ import annotations
 
@@ -151,6 +152,21 @@ def hash_n(inp: torch.Tensor, cap: torch.Tensor | None = None,
         raise ValueError("hash_n: `out` must be a contiguous [B, 4]")
     _launch(inp, 8, cap, out, 4)
     return out
+
+
+def fold_root_pow2(digs: torch.Tensor) -> torch.Tensor:
+    """Fold [..., n, 4] digests (n a power of two) to their Merkle root
+    [..., 4] (poseidon_jax.fold_root_pow2): each level is one batched
+    `hash_n` over every batch element's row pairs."""
+    n = digs.shape[-2]
+    if n & (n - 1):
+        raise ValueError(f"fold_root_pow2 takes a power-of-two count, "
+                         f"got {n}")
+    batch = digs.shape[:-2]
+    while n > 1:
+        n //= 2
+        digs = hash_n(digs.reshape(-1, 8)).reshape(*batch, n, 4)
+    return digs[..., 0, :]
 
 
 def _pad_cols(rows: torch.Tensor, width: int) -> torch.Tensor:

@@ -13,6 +13,12 @@ other op makes a new tensor, so no read aliases a write.
 Also here: the domain vectors (`seed_domains`), the Lagrange vectors and
 openings at xi / w*xi (`compute_levs`, `compute_evals`) and
 xDivXSubXi / xDivXSubWXi (`compute_xdiv`), each built on the device.
+
+Under a mesh (parallel/meshctx.py; vm_jax.py's row-sharded layout) every
+section is this rank's row block: the column ops stay local, a next-row
+read or a next-row write takes a halo of the neighbouring block
+(`Mesh.roll`), the domain vectors start at the block's first row, and the
+openings' limb sums are all-reduced.
 """
 from __future__ import annotations
 
@@ -29,16 +35,29 @@ class ProverContext:
     The n-domain sections, q_2ns and f_2ns start as zeros; the committed
     extended sections (cm1_2ns .. cm4_2ns, const_2ns) are the commits' own
     device tensors, set by the prover.  challenges / publics / evals are
-    host arrays (the transcript's side)."""
+    host arrays (the transcript's side).
 
-    def __init__(self, starkinfo, stark_struct, device: torch.device):
+    With a `mesh`, the sections hold this rank's row block: rows
+    [row0_n, row0_n + rows_n) of the n domain and [row0_ext, row0_ext +
+    rows_ext) of the extended one (N and Next stay the whole domains)."""
+
+    def __init__(self, starkinfo, stark_struct, device: torch.device,
+                 mesh=None):
         self.starkinfo = starkinfo
         self.device = device
+        self.mesh = mesh
         self.nbits = stark_struct.nBits
         self.nbits_ext = stark_struct.nBitsExt
         self.N = 1 << self.nbits
         self.Next = 1 << self.nbits_ext
-        N, Next = self.N, self.Next
+        if mesh is not None and not mesh.sharded(self.N) and mesh.model > 1:
+            raise ValueError(f"2^{self.nbits} rows do not split over "
+                             f"{mesh.model} ranks")
+        self.row0_n, self.rows_n = (0, self.N) if mesh is None \
+            else mesh.block(self.N)
+        self.row0_ext, self.rows_ext = (0, self.Next) if mesh is None \
+            else mesh.block(self.Next)
+        N, Next = self.rows_n, self.rows_ext
         sN = starkinfo.map_sectionsN
 
         def zeros(deg, width):
@@ -65,8 +84,12 @@ class ProverContext:
         self.engine = None
 
 
-def _roll(a, k: int):
-    """Row i takes row (i + k) mod n."""
+def _roll(ctx, a, k: int):
+    """Row i takes row (i + k) mod n of the whole domain (k < 0: row
+    i - |k|); under a mesh the neighbouring block's rows come in as a
+    halo."""
+    if ctx.mesh is not None:
+        return ctx.mesh.roll(a, k)
     return a if k == 0 else torch.roll(a, -k, dims=0)
 
 
@@ -110,7 +133,7 @@ def _run_ops(ctx, ops, dom: str) -> dict:
     ctx.sections in place.  Returns the tmps: id -> ([n, d], d)."""
     si = ctx.starkinfo
     dev = ctx.device
-    n = ctx.N if dom == "n" else ctx.Next
+    n = ctx.rows_n if dom == "n" else ctx.rows_ext
     next_ = 1 if dom == "n" else 1 << (ctx.nbits_ext - ctx.nbits)
     small: dict = {}   # uploaded once per segment run, on first read
 
@@ -133,7 +156,7 @@ def _run_ops(ctx, ops, dom: str) -> dict:
             buf = ctx.sections["const_n" if dom == "n" else "const_2ns"]
             col = buf[:, node.id : node.id + 1]
             if node.prime:
-                col = _roll(col, 1 if dom == "n" else next_)
+                col = _roll(ctx, col, 1 if dom == "n" else next_)
             return col, 1
         if t in ("cm", "tmpExp"):
             if t == "cm":
@@ -144,7 +167,7 @@ def _run_ops(ctx, ops, dom: str) -> dict:
             col = ctx.sections[p.section][:, p.section_pos
                                           : p.section_pos + p.dim]
             if node.prime:
-                col = _roll(col, next_)
+                col = _roll(ctx, col, next_)
             return col, p.dim
         if t == "number":
             return gl.full((1, 1), parse_pil_number(node.value),
@@ -203,7 +226,7 @@ def _run_ops(ctx, ops, dom: str) -> dict:
         if dv > width:
             raise ValueError("dim overflow on write")
         if dest.prime:
-            val = torch.roll(val, next_, dims=0)
+            val = _roll(ctx, val, -next_)
         buf = ctx.sections[name]
         buf[:, off : off + dv] = val
         if dv < width:   # a dim-1 value in a dim-3 slot: zero the rest
@@ -219,11 +242,17 @@ def execute_segment(ctx, segment, dom: str):
 
 def exp_at_point(ctx, segment, idx: int):
     """The publics segment's last value at row `idx` of the n domain:
-    (u64 [3], dim) on the host (stark_gen._calculate_exp_at_point)."""
+    (u64 [3], dim) on the host (stark_gen._calculate_exp_at_point); under
+    a mesh the rank that owns the row answers every rank."""
     tmps = _run_ops(ctx, segment.first, "n")
     val, dv = tmps[segment.first[-1].dest.id]
+    if ctx.mesh is None:
+        row = val[idx]
+    else:
+        owner, local = divmod(idx, ctx.rows_n)
+        row = ctx.mesh.from_owner(val[local], owner)
     out = np.zeros(3, dtype=np.uint64)
-    out[:dv] = gl.to_u64(val[idx])
+    out[:dv] = gl.to_u64(row)
     return out, dv
 
 
@@ -232,16 +261,19 @@ def seed_domains(ctx):
     w^i by log-doubling, the coset scale, and the 2^eb distinct values of
     1 / (SHIFT^N * w_eb^i - 1) tiled over the extended domain."""
     dev = ctx.device
-    ctx.x_n = gl.powers(gl.root_of_unity(ctx.nbits), ctx.N, dev)
-    ctx.x_2ns = gl.mul(gl.powers(gl.root_of_unity(ctx.nbits_ext), ctx.Next,
-                                 dev), gl.SHIFT)
+    w_n, w_ext = gl.root_of_unity(ctx.nbits), gl.root_of_unity(ctx.nbits_ext)
+    ctx.x_n = gl.powers(w_n, ctx.rows_n, dev)
+    if ctx.row0_n:   # the block's first row
+        ctx.x_n = gl.mul(ctx.x_n, gl.as_i64(gl.exp_int(w_n, ctx.row0_n)))
+    ctx.x_2ns = gl.mul(gl.powers(w_ext, ctx.rows_ext, dev), gl.as_i64(
+        gl.mul_int(gl.SHIFT, gl.exp_int(w_ext, ctx.row0_ext))))
     eb = ctx.nbits_ext - ctx.nbits
     sn = gl.exp_int(gl.SHIFT, ctx.N)
     w_eb = gl.root_of_unity(eb)
     zhinv = [gl.inv_int((gl.mul_int(sn, gl.exp_int(w_eb, i)) - 1) % gl.P_INT)
              for i in range(1 << eb)]
     ctx.zhinv_2ns = gl.from_u64(np.array(zhinv, dtype=np.uint64),
-                                dev).repeat(ctx.Next >> eb)
+                                dev).repeat(ctx.rows_ext >> eb)
 
 
 def _geometric(r, nbits: int, device) -> torch.Tensor:
@@ -257,9 +289,11 @@ def _geometric(r, nbits: int, device) -> torch.Tensor:
 
 def compute_levs(ctx, xis, wxis):
     """(LEv, LpEv): the Lagrange vectors at xi / w*xi (each [N, 3]), the
-    iNTT of the geometric powers, built on the device."""
-    return tuple(ntt.intt(_geometric(r, ctx.nbits, ctx.device), ctx.nbits)
-                 for r in (xis, wxis))
+    iNTT of the geometric powers, built on the device; under a mesh each
+    rank builds them whole and keeps its block's rows."""
+    r0, n = ctx.row0_n, ctx.rows_n
+    return tuple(ntt.intt(_geometric(r, ctx.nbits, ctx.device),
+                          ctx.nbits)[r0 : r0 + n] for r in (xis, wxis))
 
 
 def ev_entries(starkinfo):
@@ -281,7 +315,8 @@ def compute_evals(ctx, LEv, LpEv) -> np.ndarray:
     """The openings: for each ev_map entry, the sum over the n domain of its
     extended column (stride 2^eb) times the Lagrange vector.  Each product's
     32-bit limbs sum exactly in int64 (N < 2^31), and the one download of
-    all the limb sums is reduced mod p on the host.  Returns u64 [n_ev, 3]."""
+    all the limb sums is reduced mod p on the host (under a mesh, after
+    one all_reduce of every rank's sums).  Returns u64 [n_ev, 3]."""
     stride = 1 << (ctx.nbits_ext - ctx.nbits)
     sums = []
     for name, off, dim, prime in ev_entries(ctx.starkinfo):
@@ -292,7 +327,10 @@ def compute_evals(ctx, LEv, LpEv) -> np.ndarray:
                                  ((prod >> 32) & 0xFFFFFFFF).sum(0)]))
     out = np.zeros((len(sums), 3), dtype=np.uint64)
     if sums:
-        limbs = torch.stack(sums).cpu().tolist()     # [n_ev, 2, 3]
+        limbs = torch.stack(sums)                    # [n_ev, 2, 3]
+        if ctx.mesh is not None:
+            limbs = ctx.mesh.row_sum(limbs)
+        limbs = limbs.cpu().tolist()
         for i, (lo, hi) in enumerate(limbs):
             out[i] = [(l + (h << 32)) % gl.P_INT for l, h in zip(lo, hi)]
     return out

@@ -6,7 +6,8 @@ over the domain stays on `device`: the commits, the constraint VM, the Q
 split, the openings, xDivXSubXi and the FRI fold chain.  `Engine()` takes the
 current CUDA device and raises when there is none; `Engine("cpu")` is the
 explicit CPU choice, which runs the same code on CPU tensors with the
-kernels' plain versions.
+kernels' plain versions.  `Engine(mesh=m)` proves on the row blocks of a
+parallel/meshctx.Mesh, on that rank's device.
 """
 from __future__ import annotations
 
@@ -16,7 +17,14 @@ import torch
 class Engine:
     """Resolved engine for one prove."""
 
-    def __init__(self, device: torch.device | str | None = None):
+    def __init__(self, device: torch.device | str | None = None,
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("no CUDA device: pass device='cpu' to "
@@ -28,4 +36,5 @@ class Engine:
         self.device = device
 
     def __repr__(self):
-        return f"Engine(device={self.device}, resident=True)"
+        mesh = "" if self.mesh is None else f", mesh={self.mesh}"
+        return f"Engine(device={self.device}, resident=True{mesh})"

@@ -49,8 +49,9 @@ def _eval_pol_one(coeffs: list, x) -> tuple:
 
 
 class FRI:
-    def __init__(self, stark_struct, backend: Backend):
+    def __init__(self, stark_struct, backend: Backend, mesh=None):
         self.backend = backend  # the hash's trees, checks and transcript
+        self.mesh = mesh        # parallel/meshctx.Mesh of a sharded prove
         self.in_nbits = stark_struct.nBitsExt
         self.max_deg_nbits = stark_struct.nBits
         self.n_queries = stark_struct.nQueries
@@ -58,10 +59,15 @@ class FRI:
 
     def prove(self, transcript, pol: torch.Tensor, query_pol, prefetch=None):
         """pol: [2^in_nbits, 3] F3 values on the shifted coset, on the
-        device.  The fold chain stays there (fri.py::_prove_device)."""
-        if pol.shape != (1 << self.in_nbits, 3):
-            raise ValueError(f"FRI takes [2^{self.in_nbits}, 3], got "
-                             f"{tuple(pol.shape)}")
+        device (under a mesh: its row block).  The fold chain stays there
+        (fri.py::_prove_device)."""
+        mesh = self.mesh
+        rows = 1 << self.in_nbits
+        if mesh is not None:
+            rows = mesh.block(rows)[1]
+        if pol.shape != (rows, 3):
+            raise ValueError(f"FRI takes [2^{self.in_nbits}, 3] (row blocks "
+                             f"of {rows}), got {tuple(pol.shape)}")
         pol_bits = self.in_nbits
         shift_inv = gl.inv_int(gl.SHIFT)
         trees = []
@@ -70,19 +76,24 @@ class FRI:
         for si, step in enumerate(self.steps):
             reduction_bits = pol_bits - step.nBits
             special_x = transcript.get_field()
-            if si == 0:
-                pol = pol[: 1 << step.nBits]
-            else:
+            if si == 0 and step.nBits < pol_bits:
+                if pol.shape[0] < 1 << pol_bits:   # rows of a mesh
+                    pol = mesh.rows(mesh.replicated(pol)[: 1 << step.nBits])
+                else:
+                    pol = pol[: 1 << step.nBits]
+            elif si > 0:
                 pol = fri_ops.fold(pol, special_x, pol_bits, step.nBits,
-                                   shift_inv)
+                                   shift_inv, mesh)
             if si < len(self.steps) - 1:
                 tree = fri_ops.fold_tree(pol, step.nBits,
                                          self.steps[si + 1].nBits,
-                                         self.backend.tree)
+                                         self.backend.tree, mesh)
                 trees.append(tree)
                 proof.queries[si + 1]["root"] = tree.root()
                 transcript.put_root(tree.root())
             else:
+                if pol.shape[0] < 1 << step.nBits:
+                    pol = mesh.replicated(pol)
                 last = gl.to_u64(pol).copy()
                 for e in last:
                     transcript.put_elements([int(e[0]), int(e[1]), int(e[2])])

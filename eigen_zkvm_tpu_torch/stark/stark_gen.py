@@ -17,6 +17,13 @@ Every section lives on `engine.device` from the start; the host sees the
 roots, the openings and the query rows (and, on the CPU, the plain h1/h2's
 columns).  The hash backend (stark/backends.py: GL, BN128 or BLS12381)
 chooses the Merkle trees and the transcript; nothing else changes with it.
+
+With `engine.mesh` (parallel/meshctx.py; GL only) every rank runs this
+function on its row blocks (SPMD) and the transcript runs replicated on
+every rank's host: the commits are ops/commit.py's sharded twins, h1/h2
+gather their two columns, the grand products are a distributed scan, and
+FRI folds over group blocks.  The proof is the single-device one, on every
+rank.
 """
 from __future__ import annotations
 
@@ -129,14 +136,21 @@ def h1h2(f: torch.Tensor, t: torch.Tensor):
     return calculate_h1h2_tensor(f, t)
 
 
-def calculate_z(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+def calculate_z(num: torch.Tensor, den: torch.Tensor,
+                mesh=None) -> torch.Tensor:
     """Z[0] = 1, Z[i] = prod_{k<i} num[k] / den[k] ([N, 3] on the device);
-    the full product must be 1."""
-    acc = f3.prefix_product(f3.mul(num, f3.inv(den)))
-    if gl.to_u64(acc[-1]).tolist() != [1, 0, 0]:
+    the full product must be 1.  Under a mesh, num and den are row blocks
+    and so is Z: the scan runs over the whole column
+    (f3.prefix_product_sharded)."""
+    ratio = f3.mul(num, f3.inv(den))
+    if mesh is None:
+        acc = f3.prefix_product(ratio)
+        total, first = acc[-1], f3.from_ints(f3.ONE_INT, num.device)
+    else:
+        acc, first, total = f3.prefix_product_sharded(ratio, mesh)
+    if gl.to_u64(total).tolist() != [1, 0, 0]:
         raise ValueError("calculate_z: the grand product is not 1")
-    one = f3.from_ints(f3.ONE_INT, num.device)[None, :]
-    return torch.cat([one, acc[:-1]])
+    return torch.cat([first[None, :], acc[:-1]])
 
 
 def _extend_and_merkelize(ctx, section: str, tree_builder):
@@ -149,9 +163,10 @@ def _extend_and_merkelize(ctx, section: str, tree_builder):
 
 
 def _committed(ctx, tree) -> torch.Tensor:
-    """The [Next, width] values a tree commits to, on the engine's device."""
+    """The [Next, width] values a tree commits to (this rank's rows of
+    them), on the engine's device."""
     if tree.width == 0:
-        return torch.zeros((ctx.Next, 0), dtype=torch.int64,
+        return torch.zeros((ctx.rows_ext, 0), dtype=torch.int64,
                            device=ctx.device)
     return tree.device_elements.to(ctx.device)
 
@@ -161,10 +176,17 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
               prover_addr: str = "", prof: Prof | None = None) -> StarkProof:
     backend = get_backend(stark_struct.verificationHashType)
     engine = engine or Engine()
-    dev = engine.device
+    dev, mesh = engine.device, engine.mesh
     prof = prof or Prof("stark_gen", dev)
-    ctx = vm.ProverContext(starkinfo, stark_struct, dev)
+    ctx = vm.ProverContext(starkinfo, stark_struct, dev, mesh)
     ctx.engine = engine
+    if mesh is None:
+        commits, q_split = backend.tree, commit.q_split
+    elif stark_struct.verificationHashType != "GL":
+        raise ValueError("a sharded prove commits GL trees only")
+    else:
+        commits = commit.ShardedCommit(mesh)
+        q_split = commits.q_split
     structlog.log_event("stark_gen.start", nbits=stark_struct.nBits,
                         nbits_ext=stark_struct.nBitsExt,
                         hash=stark_struct.verificationHashType,
@@ -174,8 +196,10 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
 
     # trace + preprocessed columns
     cm_host = cm_pols.write_buff()
-    ctx.sections["cm1_n"].copy_(gl.from_u64(cm_host))
-    ctx.sections["const_n"].copy_(gl.from_u64(const_pols.write_buff()))
+    rows = slice(ctx.row0_n, ctx.row0_n + ctx.rows_n)
+    ctx.sections["cm1_n"].copy_(gl.from_u64(cm_host[rows]))
+    ctx.sections["const_n"].copy_(gl.from_u64(
+        const_pols.write_buff()[rows]))
     ctx.sections["const_2ns"] = _committed(ctx, const_tree)
     vm.seed_domains(ctx)
 
@@ -199,7 +223,7 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
         transcript.put_elements([int(x) for x in ctx.publics[i, : public_dims[i]]])
 
     # ---- stage 1
-    tree1 = _extend_and_merkelize(ctx, "cm1_n", backend.tree)
+    tree1 = _extend_and_merkelize(ctx, "cm1_n", commits)
     transcript.put_root(tree1.root())
     ctx.challenges[0] = transcript.get_field()  # u
     ctx.challenges[1] = transcript.get_field()  # defVal
@@ -208,13 +232,16 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
     for pu in starkinfo.pu_ctx:
         f_pol = get_pol(ctx, starkinfo.exp2pol[pu.f_exp_id])
         t_pol = get_pol(ctx, starkinfo.exp2pol[pu.t_exp_id])
+        if mesh is not None:   # a sort needs the whole columns
+            f_pol, t_pol = mesh.replicated(f_pol), mesh.replicated(t_pol)
         for h in h1h2(f_pol, t_pol):
-            set_pol(ctx, starkinfo.cm_n[n_cm], h)
+            set_pol(ctx, starkinfo.cm_n[n_cm],
+                    h if mesh is None else mesh.rows(h))
             n_cm += 1
     prof.tick("stage1 trace commit")
 
     # ---- stage 2
-    tree2 = _extend_and_merkelize(ctx, "cm2_n", backend.tree)
+    tree2 = _extend_and_merkelize(ctx, "cm2_n", commits)
     transcript.put_root(tree2.root())
     ctx.challenges[2] = transcript.get_field()  # gamma
     ctx.challenges[3] = transcript.get_field()  # beta
@@ -223,13 +250,13 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
     for o in list(starkinfo.pu_ctx) + list(starkinfo.pe_ctx) + list(starkinfo.ci_ctx):
         p_num = get_pol(ctx, starkinfo.exp2pol[o.num_id])
         p_den = get_pol(ctx, starkinfo.exp2pol[o.den_id])
-        set_pol(ctx, starkinfo.cm_n[n_cm], calculate_z(p_num, p_den))
+        set_pol(ctx, starkinfo.cm_n[n_cm], calculate_z(p_num, p_den, mesh))
         n_cm += 1
     vm.execute_segment(ctx, program.step3, "n")
     prof.tick("stage2 h1/h2 commit")
 
     # ---- stage 3
-    tree3 = _extend_and_merkelize(ctx, "cm3_n", backend.tree)
+    tree3 = _extend_and_merkelize(ctx, "cm3_n", commits)
     transcript.put_root(tree3.root())
     ctx.challenges[4] = transcript.get_field()  # vc
     prof.tick("stage3a cm3 commit")
@@ -240,16 +267,16 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
     # Q split: monomial blocks of size N, coset-unscaled, on the ext domain
     q_dim, q_deg = starkinfo.q_dim, starkinfo.q_deg
     if q_deg > 0:
-        ctx.sections["cm4_2ns"] = commit.q_split(
+        ctx.sections["cm4_2ns"] = q_split(
             ctx.sections["q_2ns"], q_dim, q_deg, nbits, ctx.nbits_ext)
     else:
         ctx.sections["cm4_2ns"] = torch.zeros(
-            (ctx.Next, starkinfo.map_sectionsN.cm4_n), dtype=torch.int64,
+            (ctx.rows_ext, starkinfo.map_sectionsN.cm4_n), dtype=torch.int64,
             device=dev)
     prof.tick("stage3 z commit")
 
     # ---- stage 4
-    tree4 = backend.tree.merkelize(ctx.sections["cm4_2ns"])
+    tree4 = commits.merkelize(ctx.sections["cm4_2ns"])
     transcript.put_root(tree4.root())
     ctx.challenges[7] = transcript.get_field()  # xi
 
@@ -285,7 +312,7 @@ def stark_gen(cm_pols, const_pols, const_tree, starkinfo, program,
             if hasattr(t, "prefetch"):
                 t.prefetch(idxs)
 
-    fri_proof = FRI(stark_struct, backend).prove(
+    fri_proof = FRI(stark_struct, backend, mesh).prove(
         transcript, ctx.sections["f_2ns"], query_pol, prefetch=prefetch)
     prof.tick("fri")
     prof.done()

@@ -73,6 +73,21 @@ def test_double_and_add_reference_matches_msm_g1(ec_jax_case):
     assert ec.affine_ints(ec.G1, got)[0] == msm_g1(jbn, pts, scalars)
 
 
+def test_addition_without_the_host_check_is_the_same(ec_jax_case):
+    """`add(..., check=False)`, which msm_plain's rounds replay from a
+    CUDA graph on the card, always computes the doubling: the same sums
+    where a lane adds a point to itself, to infinity or to another."""
+    pts, _ = ec_jax_case
+    g = ec.G1
+    p = ec.from_affine(g, ec.affine_tensor(g, pts))
+    q = tuple(v.flip(0) for v in p)
+    for a, b in ((p, p), (p, q), (q, p)):
+        want = ec.add(g, a, b)
+        got = ec.add(g, a, b, check=False)
+        assert ec.affine_ints(g, ec.to_affine(g, got)) == \
+            ec.affine_ints(g, ec.to_affine(g, want))
+
+
 @pytest.mark.parametrize("case", ["hot", "tiny", "doubling"])
 def test_g1_msm_hot_buckets_match_msm_g1(case):
     """tests/test_native_ec.py's degenerate inputs: a hot bucket of

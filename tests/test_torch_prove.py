@@ -180,6 +180,9 @@ def test_proving_with_the_port_never_imports_jax():
         from eigen_zkvm_tpu_torch.zkvm import (
             cc, evm, guest_evm_c, guest_keccak, guest_lr, guest_secp256k1,
             guests, guests_llvm, llvm_backend)
+        from eigen_zkvm_tpu_torch import bench_sharded
+        from eigen_zkvm_tpu_torch.parallel import (launch, meshctx, sharded,
+                                                   sharded_prove)
         assert cc.c_execute("int main() { return 6 * 7; }")[1] == 42
         assert guest_secp256k1.P == 2**256 - 2**32 - 977
         assert guest_keccak.keccak256_ref(b"").hex().startswith("c5d246")
@@ -228,6 +231,9 @@ def test_proving_with_the_port_never_imports_jax():
         assert cb.check() and len(cb.constraints) == 2 * 129
         assert callable(pil2circom.pil2circom)
         assert callable(pil2circom_onchain.render_onchain)
+        assert callable(sharded_prove.sharded_prove) and callable(
+            sharded.make_sharded_commit) and callable(launch.RankPool)
+        assert callable(meshctx.Mesh) and callable(bench_sharded.main)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
         assert not bad, bad
@@ -270,6 +276,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
             for m in ("cc", "llvm_backend", "guests_llvm", "guest_keccak",
                       "guest_secp256k1", "guest_evm_c", "evm", "guest_lr",
                       "guests")} <= set(files)
+    assert {os.path.join(ROOT, "eigen_zkvm_tpu_torch", *p) for p in (
+        ("parallel", "meshctx.py"), ("parallel", "launch.py"),
+        ("parallel", "sharded.py"), ("parallel", "sharded_prove.py"),
+        ("bench_sharded.py",))} <= set(files)
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
     assert not bad, bad
