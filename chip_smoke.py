@@ -251,6 +251,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
               extend_and_merkelize roots.  Prints the phase's seconds, the
               stage walls, the collectives' calls, seconds and bytes, and
               each rank's peak device memory.
+ 17. leftovers what the JAX package had beyond the earlier phases: first
+              the NTT and Poseidon at FRI over GF(p^5)'s shapes (the
+              polynomial's values [2^20, 5] and LDE, each fold's group
+              iNTT [2^5, 5 x groups], the step-0 tree's [2^21, 5] leaves
+              with the plain version on one row in F5G_EVERY, each fold
+              tree's [groups, 160] leaves) against their plain versions,
+              exactly; then a seeded degree < 2^20 polynomial over GF(p^5)
+              extended on the card, its step-0 tree and FRI(..., dim=5) at
+              phase 4's FRI shape: the proof JSON's (stark/fri.proof_json)
+              sha256 must be F5G_SHA256, the JAX package's host FRI's, the
+              port's verifier must accept it and reject a changed last
+              value, both GL kernels must launch.  Then the Poseidon AIR
+              at 2^6 and 2^16 and the
+              simple-VM AIR at 2^10 (the port's examples/) through the
+              CLI's stark_prove and stark_verify, zkin sha256 held to
+              EXAMPLES_SHA256.  Then phase 6's verifier.sol, proof and
+              publics through the port's onchain.SolContract: verifyTx
+              returns 1, and 0 for a changed public.  Prints the phase's
+              seconds and each part's.
 
 Phase 3 holds each kernel at every shape the main path gives it: the NTT
 at the LDE of a section, a leaf tile, the Q split's iNTT and NTT and the
@@ -266,7 +285,8 @@ final layer, K2 in its Groth16 setup and K1, K3 and K4 in its prove, K2
 in phase 12's Groth16 setup, K1, K3 and K4 in its prove and the NTT and
 Poseidon in its compressor prove, the NTT and Poseidon in phase 13's
 transfer prove, the BLS12-381 kernels in phase 14's setup and prove and
-in phase 15's, the GL kernels on every rank of phase 16.
+in phase 15's, the GL kernels on every rank of phase 16, and in phase 17's
+F5G commit and FRI prove and in each of its example proves.
 The kernels' line gives the GL kernels phase 4's launches, Poseidon-Fr
 phase 9's and 11's final layer's, the Groth16 kernels phase 11's wrap's,
 the BLS12-381 instances phase 14's.
@@ -540,6 +560,32 @@ LONG_ROWS = 1 << 16   # K4's long-row circuit (bench_groth16.long_rows)
 # then run make_sharded_commit on a (2, 2) grid over COMMIT_BATCH seeded
 # traces of phase 4's shape
 SHARDS, COMMIT_GRID, COMMIT_BATCH, COMMIT_SEED = 4, (2, 2), 2, 16
+# Phase 17: (a) FRI over GF(p^5) at phase 4's FRI shape
+# (bench_chain.chain_struct(NBITS, QUERIES): nBitsExt 21, steps 21, 16, 11,
+# 6, 1, 8 queries) of a degree < 2^NBITS polynomial whose coefficients
+# bench_fri.coeffs draws from F5G_SEED.  The digest is the sha256 of
+# stark/fri.proof_json of the JAX package's host FRI(..., dim=5) on the same
+# coset evaluation; tests/test_torch_f5.py::
+# test_jax_host_gives_the_pinned_f5g_digest recomputes it.  The plain
+# Poseidon is held on one row in F5G_EVERY of the step-0 leaves.
+F5G_SEED, F5G_EVERY = 55, 8
+F5G_SHA256 = \
+    "615957675c58e94c7afdeb11d8a5a35b6655e39a9b2e01d2ea2f34e0f3f91e02"
+# (b) the port's examples/poseidon.py and examples/simple_vm.py through the
+# CLI (write_example_air: example_inputs, chain_struct_json(nbits,
+# ARG_QUERIES)).  The digests are the zkin JSON's sha256 that the JAX
+# package's host engine writes for its own examples with the same inputs
+# and struct; tests/test_torch_examples.py recomputes them.
+EXAMPLE_AIRS = (("poseidon", 6), ("poseidon", 16), ("simple_vm", 10))
+SIMPLE_VM_TAPE = (6, 3, 250, 40, 99, 100, 7)
+EXAMPLES_SHA256 = {
+    ("poseidon", 6):
+        "6f967e61299a3d1dfd304a638b242b5e0f62e715e8915cf43266242de3d564e5",
+    ("poseidon", 16):
+        "372834480bf5b0ac99163b9c177934e80aab87346805a280910f89815c16de8a",
+    ("simple_vm", 10):
+        "3bda77a47696b0967e11449a19b4f6c2b6e8cf3bcb9512a076dbe4b35a3934b4",
+}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 # Fewest IMADs (IMAD.WIDE.U32, a 32x32->64-bit multiply-add) for one
@@ -1071,7 +1117,7 @@ def _cli_groth16(dev, circ, vk, pk) -> dict:
     groth16_verify and generate_verifier through cli.main on the card (the
     prove's kernel counts set to 0 just before it); groth16_setup, prove
     and verify of a two-constraint circuit (x * y = 35, x + y = 12) through
-    the CLI."""
+    the CLI.  `files` keeps verifier.sol, proof.json and public.json."""
     import torch
 
     from eigen_zkvm_tpu_torch import cli, kernels
@@ -1125,9 +1171,12 @@ def _cli_groth16(dev, circ, vk, pk) -> dict:
             "generate_verifier", "--vk", p["vk.json"], "--sol",
             p["verifier.sol"]])
         out.update(verify_s=t1 - t0, render_s=time.perf_counter() - t1)
-        with open(p["verifier.sol"]) as f:
-            out["render_matches"] = f.read() == \
-                api.generate_verifier_from_vk(vk)
+        out["files"] = {}
+        for k in ("verifier.sol", "proof.json", "public.json"):
+            with open(p[k]) as f:
+                out["files"][k] = f.read()
+        out["render_matches"] = out["files"]["verifier.sol"] == \
+            api.generate_verifier_from_vk(vk)
 
         toy = [({3: 1}, {4: 1}, {1: 1}), ({3: 1, 4: 1}, {0: 1}, {2: 1})]
         r1cs_file.save_r1cs(p["toy.r1cs"], r1cs_of(toy, 5, 2))
@@ -2126,6 +2175,240 @@ def _check_bridge_kernels(dev) -> list:
     return cases
 
 
+def example_inputs(name: str) -> list:
+    """The inputs phase 17 proves an example AIR of (the JAX package's
+    tests' kind): the Poseidon AIR's 12 lanes drawn from seed 11, the
+    simple-VM's tape."""
+    import numpy as np
+
+    from eigen_zkvm_tpu_torch.ops import gl
+
+    if name == "simple_vm":
+        return list(SIMPLE_VM_TAPE)
+    rng = np.random.default_rng(11)
+    return [int(x) % gl.P_INT for x in rng.integers(0, 2**63, size=12,
+                                                     dtype=np.uint64)]
+
+
+def write_example_air(directory: str, name: str, nbits: int) -> dict:
+    """examples/poseidon.py or examples/simple_vm.py of the port, with
+    example_inputs(name), as the files stark_prove reads (write_arg_air's
+    layout and struct).  The trace is made first: simple_vm's make_trace
+    writes its tape into a constant column."""
+    import importlib
+
+    from eigen_zkvm_tpu_torch import bench_chain
+
+    mod = importlib.import_module(f"eigen_zkvm_tpu_torch.examples.{name}")
+    pil, const_pols, make_trace = mod.build(nbits)[:3]
+    files = {k: os.path.join(directory, f"{name}.{k}")
+             for k in ("pil", "struct", "const", "cm")}
+    with open(files["pil"], "w") as f:
+        json.dump(bench_chain.pil_to_json(pil), f)
+    with open(files["struct"], "w") as f:
+        json.dump(bench_chain.chain_struct_json(nbits, ARG_QUERIES), f)
+    cm = make_trace(example_inputs(name))   # simple_vm's tape: a constant
+    const_pols.save(files["const"])
+    cm.save(files["cm"])
+    return files
+
+
+def _check_f5g_kernels(dev, rng, ss) -> dict:
+    """Phase 17's new shapes, exactly against the plain versions: the NTT
+    at the F5G polynomial's values [2^NBITS, 5] and LDE, and at each
+    fold's group iNTT [2^k, 5 x groups]; Poseidon at the step-0 tree's
+    [2^(NBITS+1), 5] leaves (the plain version on one row in F5G_EVERY)
+    and at each fold tree's [groups, 5 x group size] leaves (the tree of
+    step i commits the pol that step i + 1 folds: the fold's groups are
+    its rows), the trees of a width in one case."""
+    import torch
+
+    from eigen_zkvm_tpu_torch import kernels
+    from eigen_zkvm_tpu_torch.ops import ntt, poseidon
+    import numpy as np
+
+    n, ext = 1 << NBITS, NBITS + 1
+    x = _rand(rng, dev, (n, 5))
+    ntt_cases = [
+        _hold(f"ntt F5G values [2^{NBITS},5]", lambda: ntt.ntt(x, NBITS),
+              lambda: ntt.ntt_plain(x, NBITS), 20, 1, 8 * 2 * x.numel(),
+              _ntt_imads(NBITS, 5, False)),
+        _hold(f"ntt F5G LDE [2^{NBITS},5]->[2^{ext},5]",
+              lambda: ntt.interpolate(x, NBITS, ext),
+              lambda: ntt.interpolate_plain(x, NBITS, ext), 20, 1,
+              8 * 5 * 3 * n,
+              _ntt_imads(NBITS, 5, True) + _ntt_imads(ext, 5, False))]
+    del x
+    edge = _edge_states(np)
+    leaves = _rand(rng, dev, (2 * n, 5), edge[:, :5])
+    every = F5G_EVERY
+    pos_cases = [
+        _hold(f"poseidon F5G step-0 leaves [2^{ext},5] (plain: 1 row in "
+              f"{every})", lambda: poseidon.hash_leaves(leaves, 5),
+              lambda: poseidon.hash_leaves_plain(leaves[::every], 5), 20, 0,
+              8 * (leaves.numel() + leaves.shape[0] * 4),
+              POSEIDON_IMADS * _leaf_perms(5) * leaves.shape[0],
+              rows=slice(None, None, every))]
+    del leaves
+    steps = [s.nBits for s in ss.steps]
+    trees = []
+    for cur, nxt in zip(steps, steps[1:]):
+        bits = cur - nxt
+        grp = _rand(rng, dev, (1 << bits, 5 << nxt))
+        ntt_cases.append(_hold(
+            f"ntt F5G fold group intt [2^{bits},5x2^{nxt}]",
+            lambda: ntt.intt(grp, bits), lambda: ntt.intt_plain(grp, bits),
+            20, 3, 8 * 2 * grp.numel(), _ntt_imads(bits, 5 << nxt, True)))
+        del grp
+        w = 5 << bits
+        trees.append(_rand(rng, dev, (1 << nxt, w),
+                           np.tile(edge, (1, -(-w // 12)))[: 1 << nxt, :w]))
+    # the fold trees of a width together, their rows in one plain call (a
+    # plain sponge's time is its launches', whatever the rows)
+    groups = [[t for t in trees if t.shape[1] == w]
+              for w in sorted({t.shape[1] for t in trees})]
+    for grp in groups:
+        w, rows = grp[0].shape[1], sum(t.shape[0] for t in grp)
+        pos_cases.append(_hold(
+            "poseidon F5G fold-tree leaves " + " + ".join(
+                f"[2^{t.shape[0].bit_length() - 1},{w}]" for t in grp),
+            lambda: torch.cat([poseidon.hash_leaves(t, w) for t in grp]),
+            lambda: poseidon.hash_leaves_plain(torch.cat(grp), w), 20, 0,
+            8 * rows * (w + 4), POSEIDON_IMADS * _leaf_perms(w) * rows))
+    del trees, groups
+    return {kernels.NTT.name: ntt_cases, kernels.POSEIDON.name: pos_cases}
+
+
+def _f5g(dev) -> dict:
+    """Phase 17 (a): the F5G polynomial's LDE and step-0 tree on the card,
+    then FRI(..., dim=5) over it (the counts set to 0 before each, read
+    after); the proof JSON's sha256, the port's verify, a changed last
+    value rejected."""
+    import torch
+
+    from eigen_zkvm_tpu_torch import bench_chain, bench_fri, kernels
+    from eigen_zkvm_tpu_torch.ops import commit
+    from eigen_zkvm_tpu_torch.stark import fri as fri_mod
+    from eigen_zkvm_tpu_torch.stark.backends import get_backend
+    import numpy as np
+
+    ss = bench_chain.chain_struct(NBITS, QUERIES)
+    t0 = time.perf_counter()
+    coeffs = bench_fri.coeffs(NBITS, F5G_SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kernels.reset_counts()
+    pol = bench_fri.coset_eval(coeffs, NBITS, NBITS + 1, dev)
+    tree = commit.merkelize(pol)
+    tree.root()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    commit_launches = kernels.counts()
+    kernels.reset_counts()
+    fri = fri_mod.FRI(ss, get_backend("GL"), dim=5)
+    proof = fri_mod.prove_pol(fri, pol, tree)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = kernels.counts()
+    text = fri_mod.proof_json(proof)
+    verified = fri_mod.verify_pol(fri, tree.root(), proof)
+    t4 = time.perf_counter()
+    good = proof.last
+    proof.last = np.array(good, dtype=np.uint64)
+    proof.last[0, 2] ^= np.uint64(1)
+    rejected = not fri_mod.verify_pol(fri, tree.root(), proof)
+    proof.last = good
+    del pol, tree
+    return dict(draw_s=t1 - t0, commit_s=t2 - t1, prove_s=t3 - t2,
+                verify_s=t4 - t3,
+                tampered_verify_s=time.perf_counter() - t4,
+                commit_launches=commit_launches, launches=launches,
+                proof_bytes=len(text),
+                sha256=hashlib.sha256(text.encode()).hexdigest(),
+                verified=verified, tampered_rejected=rejected,
+                steps=[s.nBits for s in ss.steps])
+
+
+def _examples(dev) -> list:
+    """Phase 17 (b): the Poseidon and simple-VM AIRs (the port's
+    examples/) written to files, then stark_prove and stark_verify through
+    cli.main on the card (counts set to 0 before the prove, read after);
+    each zkin's sha256 against EXAMPLES_SHA256; the prove's Prof split
+    (load + setup, then stark_gen's stages)."""
+    import torch
+
+    from eigen_zkvm_tpu_torch import cli, kernels
+    from eigen_zkvm_tpu_torch.utils.profiler import Prof
+
+    results = []
+    for name, nbits in EXAMPLE_AIRS:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            files = write_example_air(tmp, name, nbits)
+            zkin = os.path.join(tmp, "zkin.json")
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            prof = Prof("cli.stark_prove", dev, on=True)
+            rc = cli.main(["stark_prove", "-s", files["struct"], "-p",
+                           files["pil"], "-c", files["const"], "-m",
+                           files["cm"], "-o", zkin], prof=prof)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = kernels.counts()
+            rc_verify = cli.main(["stark_verify", "-s", files["struct"],
+                                  "-p", files["pil"], "-c", files["const"],
+                                  "-f", zkin])
+            t3 = time.perf_counter()
+            with open(zkin, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+        want = EXAMPLES_SHA256[(name, nbits)]
+        results.append(dict(
+            name=name, nbits=nbits, write_s=t1 - t0, prove_s=t2 - t1,
+            stages=prof.stages, verify_s=t3 - t2, launches=launches,
+            sha256=digest,
+            ok=(rc == 0 and rc_verify == 0 and digest == want
+                and all(launches[k.name] > 0
+                        for k in (kernels.NTT, kernels.POSEIDON)))))
+        print(f"  {name} 2^{nbits}: files {t1 - t0:.2f} s, stark_prove "
+              f"{t2 - t1:.2f} s, stark_verify {t3 - t2:.2f} s, launches "
+              f"{launches}, sha256 {digest[:16]}..., equal to the host "
+              f"engine's: {digest == want}; the prove's stages: "
+              + ", ".join(f"{st} {sec:.2f}" for st, sec in prof.stages),
+              flush=True)
+    return results
+
+
+def _solidity(files: dict) -> dict:
+    """Phase 17 (c): the port's SolContract runs verifyTx of phase 6's
+    verifier.sol on its card proof and publics, then on a changed public
+    (the JAX SolContract's answer there is 0: tests/test_solvm.py)."""
+    from eigen_zkvm_tpu_torch.groth16 import api
+    from eigen_zkvm_tpu_torch.onchain import RevertError, SolContract
+
+    proof = api.proof_from_json(files["proof.json"])
+    pubs = api.publics_from_json(files["public.json"])
+    arg = {"a": {"X": proof.a[0], "Y": proof.a[1]},
+           "b": {"X": list(proof.b[0]), "Y": list(proof.b[1])},
+           "c": {"X": proof.c[0], "Y": proof.c[1]}}
+    t0 = time.perf_counter()
+    contract = SolContract(files["verifier.sol"])
+    t1 = time.perf_counter()
+
+    def verify_tx(publics):
+        try:
+            return contract.call("verifyTx", arg, publics)
+        except RevertError as e:
+            return f"revert: {e}"
+
+    accepted = verify_tx(list(pubs))
+    t2 = time.perf_counter()
+    changed = verify_tx([pubs[0] + 1] + list(pubs[1:]))
+    return dict(parse_s=t1 - t0, call_s=t2 - t1,
+                changed_call_s=time.perf_counter() - t2, publics=len(pubs),
+                accepted=accepted, changed=changed)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     os.environ.setdefault("EIGEN_ZKVM_SYNC", "1")
@@ -2301,6 +2584,7 @@ def main() -> int:
                                        device=dev)
     report["cli_circuit_setup_s"] = time.perf_counter() - t0
     c6 = _cli_groth16(dev, circ, vk, pk)
+    sol_files = c6.pop("files")   # phase 17 runs verifier.sol on them
     report["cli_groth16"] = c6
     report["cli_groth16_s"] = time.perf_counter() - t0
     del circ, pk, vk
@@ -2715,6 +2999,67 @@ def main() -> int:
         return _fail(f"a GL kernel never launched on a rank of the sharded "
                      f"phase: {sp['launches']}, {s16['commit_launches']}")
 
+    # 17. leftovers: FRI over GF(p^5), the Poseidon and simple-VM AIRs,
+    # phase 6's verifier.sol through the port's Solidity interpreter
+    print("leftovers: F5G FRI at phase 4's FRI shape, the Poseidon and "
+          "simple-VM AIRs through the CLI, phase 6's verifier.sol through "
+          "onchain.SolContract:", flush=True)
+    t0 = time.perf_counter()
+    try:
+        f5_cases = _check_f5g_kernels(dev, rng,
+                                      bench_chain.chain_struct(NBITS,
+                                                               QUERIES))
+        t1 = time.perf_counter()
+        f5 = _f5g(dev)
+        t2 = time.perf_counter()
+        ex = _examples(dev)
+        t3 = time.perf_counter()
+        sol = _solidity(sol_files)
+    except (RuntimeError, ValueError) as e:
+        return _fail(f"the leftovers phase failed: {e!r}")
+    for name, cs in f5_cases.items():
+        cases[name] = cases[name] + cs
+    report["leftovers"] = dict(f5g=f5, examples=ex, solidity=sol,
+                               holds_s=t1 - t0, f5g_s=t2 - t1,
+                               examples_s=t3 - t2,
+                               solidity_s=time.perf_counter() - t3)
+    report["leftovers_s"] = time.perf_counter() - t0
+    print(f"  F5G: coefficients drawn {f5['draw_s']:.3f} s, LDE + step-0 "
+          f"tree {f5['commit_s']:.3f} s (launches "
+          f"{f5['commit_launches']}), FRI prove {f5['prove_s']:.3f} s "
+          f"(launches {f5['launches']}), steps {f5['steps']}; proof JSON "
+          f"{f5['proof_bytes']} bytes, sha256 {f5['sha256']}, equal to "
+          f"the JAX host FRI's: {f5['sha256'] == F5G_SHA256}; verified "
+          f"{f5['verified']} ({f5['verify_s']:.3f} s), a changed last "
+          f"value rejected {f5['tampered_rejected']} "
+          f"({f5['tampered_verify_s']:.3f} s)", flush=True)
+    print(f"  verifier.sol (phase 6's, {sol['publics']} publics): parse "
+          f"{sol['parse_s']:.2f} s, verifyTx {sol['call_s']:.2f} s -> "
+          f"{sol['accepted']}, a changed public "
+          f"{sol['changed_call_s']:.2f} s -> {sol['changed']}")
+    print(f"leftovers: {report['leftovers_s']:.1f} s (holds "
+          f"{t1 - t0:.1f}, F5G {t2 - t1:.1f}, examples {t3 - t2:.1f}, "
+          f"Solidity {report['leftovers']['solidity_s']:.1f})", flush=True)
+    if f5["sha256"] != F5G_SHA256 or not f5["verified"] or \
+            not f5["tampered_rejected"]:
+        return _fail("the F5G FRI proof differs from the JAX host FRI's, "
+                     "does not verify, or a changed one is accepted")
+    if any(lc[k.name] == 0 for lc in (f5["commit_launches"], f5["launches"])
+           for k in gl_kernels):
+        return _fail(f"a GL kernel never launched in the F5G phase: "
+                     f"{f5['commit_launches']}, {f5['launches']}")
+    if not all(e["ok"] for e in ex):
+        return _fail("an example AIR's proof differs from the host "
+                     "engine's, was rejected, or launched no kernel")
+    if sol["accepted"] != 1 or sol["changed"] != 0:
+        return _fail("the port's SolContract did not accept phase 6's "
+                     "proof or accepted a changed public")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "eigen_zkvm_tpu"))
+    report["foreign_modules"] = foreign
+    if foreign:
+        return _fail(f"JAX or the JAX package was loaded: {foreign[:8]}")
+
     checks = [dict(cs[0], name=name, err=max(c["err"] for c in cs),
                    cases=cs) for name, cs in cases.items()]
     report["kernel_checks"] = checks
@@ -2722,8 +3067,8 @@ def main() -> int:
         return _fail("a kernel disagrees with its plain version at the "
                      "zkVM path's, the big-field proves', the recursion "
                      "layers', the wrap's, the compiled circuit's, the "
-                     "BLS12-381 phase's, the bridge's or the sharded "
-                     "prove's shapes")
+                     "BLS12-381 phase's, the bridge's, the sharded "
+                     "prove's or the F5G FRI's shapes")
 
     report["smoke_s"] = time.perf_counter() - t_start
     print(f"smoke: {report['smoke_s']:.1f} s, kernel build included")

@@ -1,12 +1,12 @@
 """The port's command line and its files against the JAX package's, on the
 CPU: .r1cs and .wtns bytes, the proving-key file, the Solidity verifier's
-text (run through onchain/solvm.py), both CLIs in-process on the same
-inputs with the same draws (vk, proof, public, zkin and joined-zkin JSON
-and the contract byte for byte), and the example AIRs with plookup,
-permutation and connection arguments proved through the port's CLI and
-held to chip_smoke.py's host-engine digests.  The port runs with
-`--device cpu` (its kernels' plain versions); without it, a command that
-works on the device raises when there is no CUDA device.
+text (run through both packages' onchain/solvm.py), both CLIs in-process
+on the same inputs with the same draws (vk, proof, public, zkin and
+joined-zkin JSON and the contract byte for byte), and the example AIRs
+with plookup, permutation and connection arguments proved through the
+port's CLI and held to chip_smoke.py's host-engine digests.  The port runs
+with `--device cpu` (its kernels' plain versions); without it, a command
+that works on the device raises when there is no CUDA device.
 """
 import hashlib
 import importlib.util
@@ -29,7 +29,7 @@ from eigen_zkvm_tpu.examples import fibonacci
 from eigen_zkvm_tpu.examples import permutation as jpermutation
 from eigen_zkvm_tpu.examples import plookup as jplookup
 from eigen_zkvm_tpu.groth16 import api as japi
-from eigen_zkvm_tpu.onchain import SolContract
+from eigen_zkvm_tpu.onchain import SolContract as JSolContract
 from eigen_zkvm_tpu.recursion.circuit import CircuitBuilder
 from eigen_zkvm_tpu_torch import bench_chain
 from eigen_zkvm_tpu_torch import bench_groth16 as bg
@@ -37,6 +37,7 @@ from eigen_zkvm_tpu_torch import cli
 from eigen_zkvm_tpu_torch.algebraic import r1cs_file, witness
 from eigen_zkvm_tpu_torch.examples import connection, permutation, plookup
 from eigen_zkvm_tpu_torch.groth16 import api
+from eigen_zkvm_tpu_torch.onchain import SolContract
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GL = 0xFFFFFFFF00000001
@@ -175,9 +176,9 @@ def test_solidity_verifier_is_the_jax_text_and_accepts_the_port_proof(
     api.generate_verifier(vk_path, sol_path)
     with open(sol_path) as f:
         assert f.read() == sol
-    contract = SolContract(sol)
-    assert contract.call("verifyTx", _proof_arg(proof), list(pubs)) == 1
-    assert contract.call("verifyTx", _proof_arg(proof), [35, 13]) == 0
+    for contract in (SolContract(sol), JSolContract(sol)):   # port, JAX
+        assert contract.call("verifyTx", _proof_arg(proof), list(pubs)) == 1
+        assert contract.call("verifyTx", _proof_arg(proof), [35, 13]) == 0
 
 
 def test_proving_key_file_round_trip_proves_the_same_bytes(tmp_path):

@@ -39,6 +39,8 @@ from eigen_zkvm_tpu.stark.serializer import stark_proof_to_json
 from eigen_zkvm_tpu.stark.stark_verify import stark_verify as host_verify
 from eigen_zkvm_tpu.stark.types import StarkStruct, Step
 from eigen_zkvm_tpu_torch import bench_chain, kernels
+from eigen_zkvm_tpu_torch.examples import poseidon as port_poseidon
+from eigen_zkvm_tpu_torch.examples import simple_vm as port_simple_vm
 from eigen_zkvm_tpu_torch.stark import prove as port_prove
 from eigen_zkvm_tpu_torch.stark import serializer as port_serializer
 from eigen_zkvm_tpu_torch.stark.engine import Engine
@@ -76,12 +78,17 @@ def _port_proof(pil, cp, cm, ss):
     return _port_setup_and_proof(pil, cp, cm, ss)[1]
 
 
-def _case(name):
+def _case(name, port=False):
+    """(pil, const pols, trace, struct) of a case; with `port`, the
+    Poseidon and simple-VM AIRs come from the port's own copies (the JAX
+    package's modules are the host engine's reference)."""
     if name == "simple_vm":
-        pil, cp, mk, _, _ = simple_vm.build(8)
+        mod = port_simple_vm if port else simple_vm
+        pil, cp, mk, _, _ = mod.build(8)
         return pil, cp, mk([6, 3, 120, 40, 99, 100, 7]), _ss(8, 2)
     if name == "poseidon":
-        pil, cp, mk, _ = poseidon.build(6)
+        mod = port_poseidon if port else poseidon
+        pil, cp, mk, _ = mod.build(6)
         return pil, cp, mk(list(range(1, 13))), _ss(6, 2)
     if name == "chain":
         pil, cp, cm = bench_chain.build_chain_air(10, 8)
@@ -97,11 +104,11 @@ def _case(name):
                                   "chain"])
 def test_port_proof_is_byte_identical_to_host_engine(monkeypatch, name):
     monkeypatch.setenv("EIGEN_ZKVM_ENGINE", "host")
-    pil, cp, cm, ss = _case(name)
+    pil, cp, cm, ss = _case(name, port=True)
     before = kernels.counts()
     proof = _port_proof(pil, cp, cm, ss)
     assert kernels.counts() == before   # CPU tensors: plain versions only
-    assert stark_proof_to_json(proof) == _host_json(pil, cp, cm, ss)
+    assert stark_proof_to_json(proof) == _host_json(*_case(name))
 
 
 @pytest.mark.parametrize("jax_vm", ["0", "1"])
@@ -183,6 +190,13 @@ def test_proving_with_the_port_never_imports_jax():
         from eigen_zkvm_tpu_torch import bench_sharded
         from eigen_zkvm_tpu_torch.parallel import (launch, meshctx, sharded,
                                                    sharded_prove)
+        from eigen_zkvm_tpu_torch.algebraic import wasmvm, witness_calculator
+        from eigen_zkvm_tpu_torch.examples import poseidon, simple_vm
+        from eigen_zkvm_tpu_torch.onchain import SolContract, solvm
+        from eigen_zkvm_tpu_torch.ops import f5
+        from eigen_zkvm_tpu_torch import bench_fri
+        from eigen_zkvm_tpu_torch.stark import fri
+        from eigen_zkvm_tpu_torch.stark.backends import get_backend
         assert cc.c_execute("int main() { return 6 * 7; }")[1] == 42
         assert guest_secp256k1.P == 2**256 - 2**32 - 977
         assert guest_keccak.keccak256_ref(b"").hex().startswith("c5d246")
@@ -234,6 +248,14 @@ def test_proving_with_the_port_never_imports_jax():
         assert callable(sharded_prove.sharded_prove) and callable(
             sharded.make_sharded_commit) and callable(launch.RankPool)
         assert callable(meshctx.Mesh) and callable(bench_sharded.main)
+        assert f5.mul_int(f5.ONE_INT, (1, 2, 3, 4, 5)) == (1, 2, 3, 4, 5)
+        assert fri.FRI(ss, get_backend("GL"), dim=5).dim == 5
+        assert bench_fri.coeffs(2, 1).shape == (4, 5)
+        assert len(poseidon.build(6)[3](list(range(12)))) == 4
+        assert simple_vm.build(8)[3]([2, 5, 200]) == (6, 1)
+        assert callable(SolContract) and solvm.U256 == 2**256 - 1
+        assert witness_calculator.fnv64("") == (0xCBF29CE4, 0x84222325)
+        assert callable(wasmvm.Instance)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
         assert not bad, bad
@@ -280,6 +302,12 @@ def test_port_sources_import_nothing_of_the_jax_package():
         ("parallel", "meshctx.py"), ("parallel", "launch.py"),
         ("parallel", "sharded.py"), ("parallel", "sharded_prove.py"),
         ("bench_sharded.py",))} <= set(files)
+    assert {os.path.join(ROOT, "eigen_zkvm_tpu_torch", *p) for p in (
+        ("ops", "f5.py"), ("examples", "poseidon.py"),
+        ("examples", "simple_vm.py"), ("onchain", "__init__.py"),
+        ("onchain", "solvm.py"), ("algebraic", "wasmvm.py"),
+        ("algebraic", "witness_calculator.py"), ("bench_fri.py",))} <= set(
+        files)
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "eigen_zkvm_tpu")]
     assert not bad, bad
